@@ -1,0 +1,16 @@
+"""Device selection shared by the port's entry points."""
+from __future__ import annotations
+
+import torch
+
+
+def require_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names a CUDA device
+    and no card is present (the port never falls back to the CPU on its
+    own — a caller that wants the CPU passes ``device="cpu"``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    return dev

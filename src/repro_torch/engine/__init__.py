@@ -1,0 +1,38 @@
+"""repro_torch.engine: plan-driven sparse-conv execution.
+
+Build a ``ScenePlan`` once per scene on the host (``build_scene_plan_host``:
+COIR + SOAR + SPADE + tiles), copy it to the card
+(``upload_scene_plan``), then run the U-Net with ``apply_unet``.
+"""
+from repro_torch.engine.api import apply_unet, conv_block, sparse_conv
+from repro_torch.engine.backends import (
+    AUTO,
+    DEFAULT_REGISTRY,
+    Backend,
+    BackendRegistry,
+    ReferenceBackend,
+    SSpNNABackend,
+    make_registry,
+)
+from repro_torch.engine.plan import (
+    REFERENCE,
+    SSPNNA,
+    ConvPlan,
+    Dispatch,
+    LevelPlan,
+    ScenePlan,
+    TileArrays,
+    build_scene_plan_host,
+    dispatch_from_dataflow,
+    level_geometry,
+    upload_scene_plan,
+)
+
+__all__ = [
+    "AUTO", "DEFAULT_REGISTRY", "REFERENCE", "SSPNNA", "Backend",
+    "BackendRegistry", "ConvPlan", "Dispatch", "LevelPlan",
+    "ReferenceBackend", "SSpNNABackend", "ScenePlan", "TileArrays",
+    "apply_unet", "build_scene_plan_host", "conv_block",
+    "dispatch_from_dataflow", "level_geometry", "make_registry",
+    "sparse_conv", "upload_scene_plan",
+]

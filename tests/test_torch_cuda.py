@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Needs no JAX, so it runs on a machine with a card and without the JAX
+package: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+Without a card every test here skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import engine
+from repro_torch.data.scenes import N_CLASSES, make_scene
+from repro_torch.kernels.sspnna.ref import random_tile_tables
+from repro_torch.kernels.sspnna.sspnna import sspnna_fused, sspnna_fused_plain
+from repro_torch.models.scn import SCNUNet, UNetConfig
+from repro_torch.sparse.tensor import SparseVoxelTensor
+
+K = 27
+# f32 sums of up to K*C products, taken in another order than the other side
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+# (v, c, n, t, d_i, d_o): the stem's C=4, N=48 (not a power of two),
+# a decoder's C=2N, one-slot tiles
+SHAPES = [
+    (96, 4, 16, 5, 32, 8),
+    (128, 16, 48, 6, 40, 16),
+    (160, 64, 32, 4, 64, 32),
+    (64, 8, 8, 3, 4, 1),
+]
+# on the card only: dO=512 (two slots a thread, two chunks), C and N not
+# multiples of 4 with a partial last chunk, N=64 at dO=32 (512 threads)
+CARD_SHAPES = [
+    (16384, 32, 32, 24, 160, 512),
+    (8192, 6, 18, 30, 48, 300),
+    (4096, 64, 64, 40, 96, 32),
+]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "feats_off_16B"])
+@pytest.mark.parametrize("shape", SHAPES + CARD_SHAPES,
+                         ids=lambda s: "v{}c{}n{}t{}i{}o{}".format(*s))
+def test_cuda_kernel_matches_plain(cuda_device, shape, aligned):
+    v, c, n, t, d_i, d_o = shape
+    rng = np.random.default_rng(sum(shape))
+    arrays = random_tile_tables(rng, v=v, c=c, n=n, t=t, d_i=d_i, d_o=d_o)
+    feats, weights, out_rows, in_rows, local_idx, counts = (
+        torch.from_numpy(x).to(cuda_device) for x in arrays)
+    if not aligned:  # a contiguous view 4 bytes into its storage
+        flat = torch.empty(feats.numel() + 1, device=cuda_device)
+        flat[1:] = feats.reshape(-1)
+        feats = flat[1:].view(v, c)
+    launches = sspnna_fused.launches
+    got = sspnna_fused(feats, weights, out_rows, in_rows, local_idx, counts,
+                       n_out=v)
+    torch.cuda.synchronize()
+    assert sspnna_fused.launches == launches + 1
+    want = sspnna_fused_plain(feats, weights, out_rows, in_rows, local_idx,
+                              counts, n_out=v)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_apply_unet_on_card_matches_cpu(cuda_device):
+    """The small test config through the card's kernel and the CPU's plain
+    version, with the same seeded weights and the same host plan."""
+    cfg = UNetConfig(widths=(8, 16), reps=1, resolution=24, capacity=2048,
+                     n_classes=N_CLASSES)
+    coords, feats, _, mask = make_scene(0, resolution=24, capacity=2048)
+    host = engine.build_scene_plan_host(SparseVoxelTensor(coords, feats, mask),
+                                        cfg, mem_budget=16 * 1024)
+    n_sspnna = sum(lvl.sub.dispatch.backend == engine.SSPNNA
+                   for lvl in host.levels)
+    assert n_sspnna == 2
+    logits = {}
+    launches = sspnna_fused.launches
+    for dev in ("cpu", cuda_device):
+        model = SCNUNet(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            logits[str(dev)] = engine.apply_unet(
+                model, feats, engine.upload_scene_plan(host, dev),
+                device=dev).cpu().numpy()
+    torch.cuda.synchronize()
+    # stem + enc + dec at level 0, enc at level 1
+    assert sspnna_fused.launches - launches == 4
+    np.testing.assert_allclose(logits["cuda"], logits["cpu"], rtol=1e-4,
+                               atol=1e-4)
