@@ -1,0 +1,54 @@
+"""Shared model components: norms, softcap, RoPE, initializers (port of
+``repro.models.common``).
+
+``rms_norm`` computes in f32 and multiplies by ``w`` (not ``1 + w``), and
+RoPE rotates split halves in f32, as the JAX package does.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)
+    angles = positions[..., None].float() * freqs      # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]               # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def dense_init(generator: torch.Generator, shape, dtype: torch.dtype,
+               device: torch.device, scale: float | None = None
+               ) -> torch.Tensor:
+    """Normal weights of std ``scale`` (default ``1/sqrt(fan_in)``), drawn
+    in f32 on the generator's device, then cast and moved to ``device``."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    s = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * s
+    return w.to(device=device, dtype=dtype)

@@ -1,0 +1,268 @@
+"""Dense decoder LM: prefill/train forward and cached decode (port of
+``repro.models.transformer``, ``GLOBAL`` and ``LOCAL`` attention layers).
+
+Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
+``lm_head`` (untied configs only) and ``layers``, one dict per layer
+(``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``ln2``, ``mlp``).
+The JAX package stacks layers per cycle of ``attn_pattern`` and scans
+them; the port loops over layers in Python, and ``params_from_jax``
+un-stacks a JAX tree into this list.
+
+Two modes share one layer: ``forward`` (``mode="train"`` or ``"prefill"``,
+which also emits the per-layer KV cache) and ``decode_step`` (one token
+against the cache). A cache is ``{"layers": [{"k", "v"}, ...], "pos": t}``
+with each layer's ``(B, S_buf, Hkv, D)`` buffers. Prefill routes attention
+through the flash kernel (``models.attention.chunked_attention``).
+
+MoE, RWKV, RG-LRU, encoder-decoder and frontend layers raise
+``NotImplementedError``: they come with later slices of the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import GLOBAL, LOCAL, ModelConfig
+from repro_torch.device import require_device
+from repro_torch.models.attention import (
+    cache_update_decode,
+    chunked_attention,
+    decode_attention,
+)
+from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
+from repro_torch.models.mlp import apply_mlp, init_mlp
+
+# ROADMAP.md, queue 1, names the slice that brings each of these
+_LATER = {
+    "moe": "the MoE LM slice",
+    "encdec": "the slice of the rest of the LM stack",
+    "frontend": "the slice of the rest of the LM stack",
+    "recurrent": "the slice of the rest of the LM stack",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for layers the port has no code for."""
+    why = None
+    if cfg.is_moe:
+        why = "moe"
+    elif cfg.is_encdec:
+        why = "encdec"
+    elif cfg.frontend is not None:
+        why = "frontend"
+    elif any(k not in (GLOBAL, LOCAL) for k in cfg.attn_pattern):
+        why = "recurrent"
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs dense GLOBAL/LOCAL decoders only; "
+            f"{why} layers come with {_LATER[why]} (ROADMAP.md, queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
+            generator: torch.Generator | None = None) -> dict:
+    """Random parameters: ``dense_init`` normals drawn from ``generator``
+    (seed 0 on the CPU when omitted), norms at 1."""
+    check_supported(cfg)
+    dev = require_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    dt, d, hd = cfg.torch_dtype, cfg.d_model, cfg.head_dim
+
+    def w(shape, scale=None):
+        return dense_init(g, shape, dt, dev, scale)
+
+    def ones():
+        return torch.ones((d,), dtype=dt, device=dev)
+
+    params = {"embed": w((cfg.vocab_padded, d), 0.02), "final_norm": ones()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = w((d, cfg.vocab_padded))
+    params["layers"] = [
+        {"ln1": ones(),
+         "attn": {"wq": w((d, cfg.n_heads * hd)),
+                  "wk": w((d, cfg.n_kv_heads * hd)),
+                  "wv": w((d, cfg.n_kv_heads * hd)),
+                  "wo": w((cfg.n_heads * hd, d))},
+         "ln2": ones(),
+         "mlp": init_mlp(g, d, cfg.d_ff, cfg.act, dt, dev)}
+        for _ in range(cfg.n_layers)]
+    return params
+
+
+def _tensor(x, device: torch.device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":  # numpy has no bf16: widen exactly
+        return torch.from_numpy(x.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig, *,
+                    device: str | torch.device = "cuda") -> dict:
+    """The JAX package's ``init_lm`` tree (numpy leaves) as the port's
+    parameters: ``tree["cycles"][j]`` stacks layer ``i*len(pattern)+j`` at
+    index ``i``, and ``tree["rem"]`` holds the layers after the last full
+    cycle."""
+    check_supported(cfg)
+    dev = require_device(device)
+
+    def conv(node, index=None):
+        if isinstance(node, dict):
+            return {k: conv(v, index) for k, v in node.items()}
+        return _tensor(node if index is None else np.asarray(node)[index], dev)
+
+    cycle = len(cfg.attn_pattern)
+    n_cycles = cfg.n_layers // cycle
+    layers = [conv(tree["cycles"][j], i)
+              for i in range(n_cycles) for j in range(cycle)]
+    layers += [conv(lp) for lp in tree["rem"]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.n_layers}")
+    params = {k: _tensor(tree[k], dev) for k in ("embed", "final_norm")}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _tensor(tree["lm_head"], dev)
+    params["layers"] = layers
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Layer application (shared by all modes)
+# ---------------------------------------------------------------------------
+
+def _attn_qkv(p, x, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
+                    pos: int, cache_pad: int):
+    b, s, _ = x.shape
+    window = cfg.window if kind == LOCAL else None
+    new_cache = None
+    if mode == "decode":
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q, k, v = _attn_qkv(p, x, cfg, positions)
+        ring = kind == LOCAL
+        ck, cv = cache_update_decode(cache["k"], cache["v"],
+                                     k.to(cache["k"].dtype),
+                                     v.to(cache["v"].dtype), pos, ring)
+        o = decode_attention(q, ck, cv, pos, ring=ring, window=window,
+                             logit_cap=cfg.attn_softcap)
+        new_cache = {"k": ck, "v": cv}
+    else:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        q, k, v = _attn_qkv(p, x, cfg, positions)
+        o = chunked_attention(q, k, v, causal=True, window=window,
+                              logit_cap=cfg.attn_softcap,
+                              acc_dtype=cfg.attn_dtype)
+        if mode == "prefill":
+            if kind == LOCAL and s >= cfg.window:
+                # ring addressing: position p lives at slot p % window
+                shift = (s - cfg.window) % cfg.window
+                new_cache = {"k": torch.roll(k[:, -cfg.window:], shift, 1),
+                             "v": torch.roll(v[:, -cfg.window:], shift, 1)}
+            else:
+                pad = (0, 0, 0, 0, 0, cache_pad)
+                new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    return o.reshape(b, o.shape[1], -1) @ p["wo"], new_cache
+
+
+def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
+                pos: int = 0, cache_pad: int = 0):
+    """Returns (x, new_cache)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    o, new_cache = _self_attention(p["attn"], h, cfg, kind, mode, cache, pos,
+                                   cache_pad)
+    x = x + o
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + apply_mlp(p["mlp"], h, cfg.act), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def _embed(params, cfg: ModelConfig, tokens):
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embeddings:  # sqrt(d) in f32, cast to the working dtype
+        scale = np.sqrt(np.float32(cfg.d_model))
+        x = x * torch.tensor(scale, device=x.device).to(x.dtype)
+    return x
+
+
+def _logits(params, cfg: ModelConfig, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = softcap((x @ head).float(), cfg.final_softcap)
+    if cfg.vocab_padded != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
+            cache_pad: int = 0, last_only: bool = False):
+    """tokens: (B, S) -> (logits (B, S, Vp) f32, cache or None, aux {}).
+
+    ``last_only`` applies the head to the last position only (logits
+    (B, 1, Vp)): what a prefill needs, without the (B, S, Vp) f32 array.
+    """
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode {mode!r} is not 'train' or 'prefill'")
+    check_supported(cfg)
+    x = _embed(params, cfg, tokens)
+    caches = []
+    for i, lp in enumerate(params["layers"]):
+        x, c = apply_layer(lp, x, cfg.layer_kind(i), cfg, mode,
+                           cache_pad=cache_pad)
+        caches.append(c)
+    if last_only:
+        x = x[:, -1:]
+    logits = _logits(params, cfg, x)
+    cache = None
+    if mode == "prefill":
+        cache = {"layers": caches, "pos": tokens.shape[1]}
+    return logits, cache, {}
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+                      device: str | torch.device = "cuda") -> dict:
+    """Zeroed cache for ``cache_len`` positions (local layers keep at most
+    ``window`` slots)."""
+    check_supported(cfg)
+    dev = require_device(device)
+    layers = []
+    for i in range(cfg.n_layers):
+        buf = (min(cfg.window, cache_len) if cfg.layer_kind(i) == LOCAL
+               else cache_len)
+        shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
+        layers.append({
+            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)})
+    return {"layers": layers, "pos": cache_len}
+
+
+def decode_step(params, cfg: ModelConfig, token, cache: dict):
+    """token: (B, 1) -> (logits (B, 1, Vp), cache advanced by one position;
+    the layers' buffers are updated in place)."""
+    x = _embed(params, cfg, token)
+    pos = cache["pos"]
+    layers = []
+    for i, lp in enumerate(params["layers"]):
+        x, c = apply_layer(lp, x, cfg.layer_kind(i), cfg, "decode",
+                           cache=cache["layers"][i], pos=pos)
+        layers.append(c)
+    return _logits(params, cfg, x), {"layers": layers, "pos": pos + 1}

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+and the paths that launch them.
 
 Needs no JAX, so it runs on a machine with a card and without the JAX
 package: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -9,9 +10,13 @@ import pytest
 import torch
 
 from repro_torch import engine
+from repro_torch.configs import get_config
 from repro_torch.data.scenes import N_CLASSES, make_scene
+from repro_torch.kernels.flash.flash import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash.ref import FLASH_CASES, FLASH_TOL, random_qkv
 from repro_torch.kernels.sspnna.ref import random_tile_tables
 from repro_torch.kernels.sspnna.sspnna import sspnna_fused, sspnna_fused_plain
+from repro_torch.models import transformer
 from repro_torch.models.scn import SCNUNet, UNetConfig
 from repro_torch.sparse.tensor import SparseVoxelTensor
 
@@ -96,3 +101,52 @@ def test_apply_unet_on_card_matches_cpu(cuda_device):
     assert sspnna_fused.launches - launches == 4
     np.testing.assert_allclose(logits["cuda"], logits["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+def flash_case_id(case):
+    b, sq, skv, hq, hkv, d, causal, window, cap, dt = case
+    return (f"b{b}q{sq}k{skv}h{hq}x{hkv}d{d}{'c' if causal else 'n'}"
+            f"w{window}s{cap}{str(dt).removeprefix('torch.')}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=flash_case_id)
+def test_flash_kernel_matches_plain(cuda_device, case):
+    b, sq, skv, hq, hkv, d, causal, window, cap, dt = case
+    q, k, v = (x.to(cuda_device) for x in random_qkv(
+        np.random.default_rng(sq + skv + d), b=b, sq=sq, skv=skv, hq=hq,
+        hkv=hkv, d=d, dtype=dt))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = FLASH_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_prefill_launches_flash_once_per_layer(cuda_device):
+    """A reduced Gemma-2 prefill (window 32 < prompt 80, so the local
+    layers mask the window) on the card: one kernel launch per layer, and
+    the logits and caches of the CPU's plain version."""
+    cfg = get_config("gemma2-2b").reduced()
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 80)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = transformer.init_lm(cfg, device=dev)
+        launches = flash_attention.launches
+        with torch.inference_mode():
+            logits, cache, _ = transformer.forward(
+                params, cfg, toks.to(dev), mode="prefill", cache_pad=4)
+        torch.cuda.synchronize()
+        n = flash_attention.launches - launches
+        assert n == (cfg.n_layers if dev == cuda_device else 0)
+        out[str(dev)] = [logits] + [c[x] for c in cache["layers"]
+                                    for x in ("k", "v")]
+    for got, want in zip(out["cuda"], out["cpu"], strict=True):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
