@@ -25,8 +25,8 @@
    lengths).
 6. Drives the LM serving path: Gemma-2 2B at its published widths (26
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
-   4096, softcaps 50 and 30), bf16, random weights from
-   ``torch.Generator().manual_seed(0)``. An ``Engine`` (batch 2, prompt
+   4096, softcaps 50 and 30), bf16, random weights drawn on the card from
+   ``torch.Generator(device="cuda").manual_seed(0)``. An ``Engine`` (batch 2, prompt
    length 6144, 16 new tokens) serves four ``TokenStream`` prompts in two
    waves, once with ``sync=True`` and once with ``sync=False``: each wave's
    prefill must launch the kernel once per layer, the tokens of both runs
@@ -38,6 +38,26 @@
    shape it also times the kernel without softcap beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
    Then times one wave's prefill and its decode steps.
+8. Frees the Gemma path and holds the grouped expert GEMM kernel against
+   its plain version (``kernels/moe_gemm/ref.MOE_GEMM_CASES``: the JAX
+   test's shapes, ragged C, d and f, an expert with no valid row, C = 8,
+   f32 and bf16 with both output dtypes).
+9. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
+   and depth (48 layers, d_model 2048, 16 heads of 128, 64 experts top-6 of
+   d_ff 1408, vocab 163840; 27.7 B parameters), bf16, random weights drawn
+   on the card. An ``Engine`` (batch 2, prompt length 4096, 16 new tokens)
+   serves four prompts in two waves, blocking and pipelined: each wave must
+   launch flash once per layer in its prefill and the expert GEMM three
+   times per layer in its prefill and in each decode step, and both runs
+   must emit the same tokens.
+10. Checks every expert-GEMM launch of one wave's prefill and of one decode
+   step against the plain version at its real inputs; the last-position
+   logits at full width and 4 layers against the plain expert products in
+   f32 and bf16; and reports (ungated) the full-depth bf16 logits against
+   the plain expert products, for which no f32 noise floor fits the card.
+11. Times the kernel at the path's three launch shapes beside its plain
+   version, ``torch.bmm`` (a yardstick the port never calls) and its bound;
+   flash at the path's D=128 shape beside SDPA; a wave's prefill and decode.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
@@ -47,6 +67,7 @@ the kernels' numbers; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -90,6 +111,23 @@ PROMPT_LENS = (6144, 5120, 6144, 4500)
 # from its f32 evaluation, which the run measures beside it.
 LM_F32_TOL = 1e-3
 LM_BF16_FACTOR = 2.0
+# the MoE LM path: Moonshot 16B-A3B at full width and depth, batch 2 in
+# slots of 4096, four prompts; MOE_CHECK_LAYERS deep for the f32 check (an
+# f32 copy of all 48 layers, 111 GB, does not fit the card)
+MOE_ARCH, MOE_PROMPT_LEN = "moonshot-v1-16b-a3b", 4096
+MOE_PROMPT_LENS = (4096, 3072, 4096, 2500)
+MOE_CHECK_LAYERS = 4
+# bf16 at full width, kernel against the plain expert products. A bf16
+# rounding that differs in one layer moves the next layers' router logits,
+# and a token whose top-k choice sits on a near tie goes to other experts,
+# which moves the logits of random weights by O(1). So end to end the
+# kernel may route otherwise at most LM_BF16_FACTOR times as many tokens as
+# bf16 itself routes otherwise (the plain path's bf16 vs f32 evaluation);
+# the last-position logits are reported. Layer by layer, given the same
+# input (so the same routing), the outputs agree within the kernel's bf16
+# tolerance, relative to the largest output (the residual sums of a layer
+# cancel, so elementwise relative errors of near-zero sums mean nothing).
+MOE_BF16_TOL = 2e-2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -108,6 +146,12 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max abs error, max of abs error / max(|want|, 1))."""
     diff = (got - want).abs()
     return float(diff.max()), float((diff / want.abs().clamp(min=1.0)).max())
+
+
+def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max abs error / max(max |want|, 1), in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1.0))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -187,6 +231,23 @@ def flash_bound(q, k, v, causal, window):
     nbytes = float(q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def device_times(fn) -> dict[str, float]:
+    """Device ms of each kernel (and copy) name that ``fn`` ran, from
+    ``torch.profiler``; empty when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the device's own events only: a CPU op's entry repeats its kernels'
+    return {evt.key: evt.self_device_time_total / 1e3
+            for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0}
 
 
 class Phases:
@@ -413,8 +474,8 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
           f"{LM_ARCH} is not at its published widths")
     check(cfg.torch_dtype == torch.bfloat16, "the LM path runs in bf16")
     torch.cuda.reset_peak_memory_stats()
-    params = transformer.init_lm(cfg, device=dev,
-                                 generator=torch.Generator().manual_seed(0))
+    params = transformer.init_lm(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in leaves(params))
     stream = TokenStream(cfg.vocab_size, len(PROMPT_LENS), PROMPT_LEN, seed=0)
     tokens = next(stream)["tokens"]
@@ -593,7 +654,7 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     ms, pms, b_ms, b_by = rows[glob]
     return {
-        "name": "flash_attention",
+        "name": "flash_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash/flash.py:30",
@@ -614,6 +675,458 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         "wave_bound_ms": sum(r[2] for r in rows),
     }
 
+def moe_gemm_bound(xin, w, valid, out_dtype):
+    """Least time (ms) for one expert-GEMM launch, and what bounds it: 2*d*f
+    FLOPs per valid row over the peak of the inputs' type, against the
+    valid rows of x, the w of experts with a valid row and the validity
+    read once and all of out written once over the memory rate."""
+    e, c, d = xin.shape
+    f = w.shape[2]
+    rows = int(valid.sum())
+    live = int(valid.any(1).sum())
+    flops = 2.0 * rows * d * f
+    peak = PEAK_BF16_FLOPS if xin.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = float(xin.element_size() * (rows * d + live * d * f)
+                   + valid.numel() + e * c * f * out_size)
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
+    """Phases 8-11: the expert GEMM on random shapes, Moonshot 16B-A3B
+    served at full width and depth, the checks at real inputs and the
+    timings. Returns the kernel's JSON entry and flash's numbers at this
+    path's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash.flash import (
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.moe_gemm.ref import (
+        MOE_GEMM_CASES,
+        grouped_gemm_ref,
+        moe_gemm_tol,
+        random_moe_inputs,
+    )
+    from repro_torch.kernels.sspnna.sspnna import sspnna_fused
+    from repro_torch.models import attention, moe, transformer
+    from repro_torch.serving.engine import Engine, Request, make_prefill, make_serve_step
+
+    def plain_gemm(xin, w, valid, *, out_dtype=None):
+        return grouped_gemm_ref(xin, w, valid, out_dtype)
+
+    phase("moe_gemm random shapes")
+    worst_abs = 0.0
+    rng = np.random.default_rng(0)
+    for e, c, d, f, share, dt, odt in MOE_GEMM_CASES:
+        xin, w, valid = (x.to(dev) for x in random_moe_inputs(
+            rng, e=e, c=c, d=d, f=f, valid_share=share, dtype=dt))
+        got = grouped_gemm(xin, w, valid, out_dtype=odt)
+        want = grouped_gemm_ref(xin, w, valid, odt)
+        torch.cuda.synchronize()
+        abs_err, rel_err = max_err(got.float(), want.float())
+        tol = moe_gemm_tol(dt, odt)
+        print(f"moe_gemm E={e} C={c} d={d} f={f} valid "
+              f"{int(valid.sum())}/{valid.numel()} "
+              f"{str(dt).removeprefix('torch.')} -> "
+              f"{str(odt).removeprefix('torch.')}: max abs {abs_err:.3g} rel "
+              f"{rel_err:.3g} (tol {tol})")
+        check(rel_err <= tol, "expert GEMM kernel disagrees with its plain "
+              "version")
+        check(not bool(got[~valid].any()), "invalid rows are not zero")
+        worst_abs = max(worst_abs, abs_err)
+
+    phase("MoE init")
+    cfg = get_config(MOE_ARCH)
+    published = (48, 2048, 16, 16, 128, 1408, 163840, 64, 6)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.moe.n_experts,
+           cfg.moe.top_k) == published,
+          f"{MOE_ARCH} is not at its published widths")
+    check(cfg.torch_dtype == torch.bfloat16, "the MoE path runs in bf16")
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_lm(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    n_norms = params["final_norm"].numel() + sum(
+        lp[k].numel() for lp in params["layers"] for k in ("ln1", "ln2"))
+    check(n_params - n_norms == cfg.param_count(),
+          f"{n_params - n_norms} parameters, config {cfg.param_count()}")
+    stream = TokenStream(cfg.vocab_size, len(MOE_PROMPT_LENS), MOE_PROMPT_LEN,
+                         seed=0)
+    tokens = next(stream)["tokens"]
+    prompts = [tokens[i, :n] for i, n in enumerate(MOE_PROMPT_LENS)]
+    cap = moe.moe_capacity(MOE_PROMPT_LEN, cfg.moe.top_k, cfg.moe.n_experts,
+                           cfg.moe.capacity_factor)
+    print(f"{MOE_ARCH}: {(n_params - n_norms) / 1e9:.3f} B parameters in "
+          f"bf16 (cfg.param_count() {cfg.param_count()}, plus {n_norms} norm "
+          f"weights; {cfg.active_param_count() / 1e9:.3f} B active a token), "
+          f"{cfg.n_layers} layers, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k}, capacity {cap} a group in prefill; prompts of "
+          f"{MOE_PROMPT_LENS} tokens in slots of {MOE_PROMPT_LEN}, batch "
+          f"{BATCH}, {MAX_NEW} new tokens each; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+
+    phase("MoE serving")
+    per_prefill = 3 * cfg.n_layers
+    per_wave = per_prefill * MAX_NEW   # the prefill and MAX_NEW - 1 steps
+
+    def serve(sync: bool):
+        eng = Engine(cfg, params, BATCH, MOE_PROMPT_LEN, MAX_NEW, sync=sync,
+                     device=dev)
+        waves = []   # [tokens, logits, flash launches, expert-GEMM launches]
+        inner_prefill, inner_step = eng.prefill, eng.step
+
+        def prefill(p, toks):
+            before = flash_attention.launches, grouped_gemm.launches
+            logits, cache = inner_prefill(p, toks)
+            waves.append([toks, logits, flash_attention.launches - before[0],
+                          grouped_gemm.launches - before[1]])
+            return logits, cache
+
+        def step(p, tok, cache):
+            before = grouped_gemm.launches
+            out = inner_step(p, tok, cache)
+            waves[-1][3] += grouped_gemm.launches - before
+            return out
+
+        eng.prefill, eng.step = prefill, step
+        handles = eng.submit([Request(i, p, max_new=MAX_NEW)
+                              for i, p in enumerate(prompts)])
+        t0 = time.perf_counter()
+        eng.serve()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        out = {h.request.rid: h.result().out for h in handles}
+        eng.close()
+        return out, waves, wall_s
+
+    flash_attention.launches = grouped_gemm.launches = 0
+    sspnna_fused.launches = 0
+    by_sync, waves, sync_s = serve(sync=True)
+    by_async, async_waves, async_s = serve(sync=False)
+    total_launches = grouped_gemm.launches
+    check(sspnna_fused.launches == 0, "the MoE path launched sspnna_fused")
+    n_new = sum(len(o) for o in by_sync.values())
+    for name, w, sec in (("sync", waves, sync_s),
+                         ("async", async_waves, async_s)):
+        print(f"serve sync={name == 'sync'}: {len(w)} waves, flash launches "
+              f"per wave {[x[2] for x in w]}, expert-GEMM launches per wave "
+              f"{[x[3] for x in w]}, {sec:.3f} s, {n_new / sec:.2f} new "
+              f"tokens/s, {sum(MOE_PROMPT_LENS) / sec:.1f} prompt tokens/s")
+        check(len(w) == len(prompts) // BATCH, f"{len(w)} waves")
+        check(all(x[2] == cfg.n_layers for x in w),
+              "a wave's prefill did not launch flash once per layer")
+        check(all(x[3] == per_wave for x in w),
+              f"a wave did not launch the expert GEMM {per_wave} times")
+    check(total_launches == 2 * len(waves) * per_wave,
+          f"{total_launches} expert-GEMM launches")
+    print(f"tokens sync={by_sync}")
+    check(by_sync == by_async, "sync and async serving emitted other tokens")
+    check(all(len(o) == MAX_NEW and all(0 <= t < cfg.vocab_size for t in o)
+              for o in by_sync.values()), "emitted tokens out of range")
+    for toks, logits, _, _ in waves:
+        check(bool(torch.isfinite(logits).all())
+              and logits.shape == (BATCH, cfg.vocab_padded),
+              "prefill logits not finite or of the wrong shape")
+    print(f"MoE serving peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    phase("MoE checks")
+    prefill = make_prefill(cfg, cache_pad=MAX_NEW)
+    step = make_serve_step(cfg)
+    kernel_gemm, kernel_bshd = moe.grouped_gemm, attention.flash_attention_bshd
+    launch_errs = []    # (abs error, rel error, tolerance) of every launch
+    launch_work = {"prefill": [], "decode": []}   # (valid rows, bound ms)
+    timed = {}          # layer 0's inputs of each launch shape
+    flash_in = []
+
+    def checked(where):
+        def run(xin, w, valid, *, out_dtype=None):
+            got = kernel_gemm(xin, w, valid, out_dtype=out_dtype)
+            want = grouped_gemm_ref(xin, w, valid, out_dtype)
+            abs_err, rel_err = max_err(got.float(), want.float())
+            launch_errs.append((abs_err, rel_err,
+                                moe_gemm_tol(xin.dtype, got.dtype)))
+            launch_work[where].append(
+                (int(valid.sum()), moe_gemm_bound(xin, w, valid, got.dtype)[0]))
+            key = (where, w.shape[1], got.dtype)
+            if key not in timed:
+                timed[key] = (xin, w, valid, got.dtype)
+            return got
+        return run
+
+    def record_flash(q, k, v, **kw):
+        if not flash_in:
+            flash_in.append((q, k, v, kw))
+        return kernel_bshd(q, k, v, **kw)
+
+    toks0 = waves[0][0]
+    with torch.inference_mode():
+        # (a) every launch of one wave's prefill and one decode step
+        moe.grouped_gemm = checked("prefill")
+        attention.flash_attention_bshd = record_flash
+        try:
+            logits, cache = prefill(params, toks0)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+            moe.grouped_gemm = checked("decode")
+            step(params, tok, cache)
+        finally:
+            moe.grouped_gemm = kernel_gemm
+            attention.flash_attention_bshd = kernel_bshd
+        del logits, cache
+        torch.cuda.synchronize()
+        check(len(launch_errs) == 2 * per_prefill,
+              f"{len(launch_errs)} expert-GEMM calls in a prefill and a step")
+        worst = max(launch_errs, key=lambda x: x[1] / x[2])
+        worst_abs = max([worst_abs] + [x[0] for x in launch_errs])
+        print(f"every expert-GEMM launch of one prefill and one decode step "
+              f"({len(launch_errs)}) vs its plain version at its real inputs: "
+              f"worst rel {worst[1]:.3g} (tol {worst[2]}), max abs "
+              f"{max(x[0] for x in launch_errs):.3g}")
+        check(all(rel <= tol for _, rel, tol in launch_errs),
+              "an expert-GEMM launch disagrees with its plain version")
+        for where, work in launch_work.items():
+            valid_rows = sorted(n for n, _ in work)
+            print(f"{where}: valid rows per expert-GEMM launch min "
+                  f"{valid_rows[0]}, median {valid_rows[len(work) // 2]}, max "
+                  f"{valid_rows[-1]} of {cfg.moe.n_experts} experts x "
+                  f"{BATCH} groups x capacity; bound summed over the "
+                  f"{len(work)} launches {sum(b for _, b in work):.4f} ms")
+
+        # (b) full width, MOE_CHECK_LAYERS layers, kernel vs plain products
+        cfg_n = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS)
+        params_n = dict(params, layers=params["layers"][:MOE_CHECK_LAYERS])
+        cfg_n32 = dataclasses.replace(cfg_n, dtype="float32")
+        params_n32 = to_float32(params_n)
+        dispatch = moe.build_dispatch
+
+        def last_logits(p, c, toks, gemm):
+            """Last-position logits with the expert products in ``gemm``,
+            and the experts every MoE layer routed each token to."""
+            routed = []
+
+            def record(idx, n_experts, capacity):
+                routed.append(idx.sort(-1).values)
+                return dispatch(idx, n_experts, capacity)
+
+            moe.grouped_gemm, moe.build_dispatch = gemm, record
+            try:
+                logits = transformer.forward(p, c, toks, last_only=True)[0]
+            finally:
+                moe.grouped_gemm, moe.build_dispatch = kernel_gemm, dispatch
+            return logits[:, -1], routed
+
+        def rerouted(a, b) -> list[int]:
+            """Tokens each MoE layer routed to other experts in a than in b."""
+            return [int((x != y).any(-1).sum()) for x, y in zip(a, b)]
+
+        for wi, (toks, _, _, _) in enumerate(waves):
+            got32, routed32 = last_logits(params_n32, cfg_n32, toks,
+                                          kernel_gemm)
+            want32, plain32 = last_logits(params_n32, cfg_n32, toks,
+                                          plain_gemm)
+            got, routed = last_logits(params_n, cfg_n, toks, kernel_gemm)
+            want, plain = last_logits(params_n, cfg_n, toks, plain_gemm)
+            torch.cuda.synchronize()
+            _, err32 = max_err(got32, want32)
+            _, err = max_err(got, want)
+            _, noise = max_err(want, want32)
+            moved, floor = rerouted(routed, plain), rerouted(plain, plain32)
+            print(f"wave {wi}, {MOE_CHECK_LAYERS} layers at full width, "
+                  f"kernel vs plain expert products: f32 last-position "
+                  f"logits rel {err32:.3g} (tol {LM_F32_TOL}; tokens routed "
+                  f"otherwise per layer {rerouted(routed32, plain32)}); bf16 "
+                  f"tokens routed otherwise per layer {moved} of "
+                  f"{toks.numel()} (tol {LM_BF16_FACTOR} x {sum(floor)}: the "
+                  f"plain path's bf16 vs f32 routes {floor} otherwise), "
+                  f"last-position logits rel {err:.3g} (reported; the plain "
+                  f"path's bf16 vs f32: {noise:.3g})")
+            check(err32 <= LM_F32_TOL,
+                  "f32 logits disagree with the plain expert products")
+            check(sum(moved) <= LM_BF16_FACTOR * sum(floor),
+                  "bf16 kernel path routes more tokens otherwise than bf16 "
+                  "itself does")
+            # bf16, layer by layer: both paths take the plain path's input
+            # to each layer, so they route alike and differ by the expert
+            # products alone
+            x = params["embed"][toks.long()]   # Moonshot's are not scaled
+            errs = []
+            for i, lp in enumerate(params_n["layers"]):
+                outs = []
+                for gemm in (kernel_gemm, plain_gemm):
+                    moe.grouped_gemm = gemm
+                    try:
+                        outs.append(transformer.apply_layer(
+                            lp, x, cfg.layer_kind(i), cfg, "train")[0])
+                    finally:
+                        moe.grouped_gemm = kernel_gemm
+                errs.append(norm_err(outs[0], outs[1]))
+                x = outs[1]
+            print(f"wave {wi}, bf16, the same input to each layer: layer "
+                  f"outputs, kernel vs plain expert products, max abs error "
+                  f"over the largest output: "
+                  f"{', '.join(f'{e:.3g}' for e in errs)} (tol {MOE_BF16_TOL})")
+            check(max(errs) <= MOE_BF16_TOL,
+                  "a bf16 layer disagrees with the plain expert products")
+        del params_n32, got32, want32, x, outs
+
+        # (c) full depth in bf16: reported, not gated (no f32 floor fits)
+        for wi, (toks, _, _, _) in enumerate(waves):
+            got, routed = last_logits(params, cfg, toks, kernel_gemm)
+            want, plain = last_logits(params, cfg, toks, plain_gemm)
+            _, err = max_err(got, want)
+            first = got[:, :cfg.vocab_size].argmax(-1).tolist()
+            plain_first = want[:, :cfg.vocab_size].argmax(-1).tolist()
+            print(f"wave {wi}, all {cfg.n_layers} layers in bf16: "
+                  f"last-position logits, kernel vs plain expert products: "
+                  f"rel {err:.3g} (reported, not gated); tokens routed "
+                  f"otherwise, summed over layers, "
+                  f"{sum(rerouted(routed, plain))} of "
+                  f"{toks.numel() * cfg.n_layers}; first tokens {first}, "
+                  f"plain {plain_first}")
+        del got, want, routed, plain
+
+    phase("MoE timing")
+    rows = {}   # name -> (kernel ms, plain ms, bmm ms, bound ms, bound by)
+    with torch.inference_mode():
+        for (where, d, odt), (xin, w, valid, _) in sorted(
+                timed.items(), key=lambda kv: (kv[0][0] != "prefill", -kv[0][1])):
+            name = (f"{where} d={d}->f={w.shape[2]} "
+                    f"{str(odt).removeprefix('torch.')}")
+            ms = time_ms(lambda: kernel_gemm(xin, w, valid, out_dtype=odt), 5)
+            pms = time_ms(lambda: grouped_gemm_ref(xin, w, valid, odt), 3)
+            xm = torch.where(valid[..., None], xin, 0)
+            lib_ms = time_ms(lambda: torch.bmm(xm, w), 5)
+            b_ms, b_by = moe_gemm_bound(xin, w, valid, odt)
+            print(f"moe_gemm {name}: x {tuple(xin.shape)}, valid rows "
+                  f"{int(valid.sum())}, experts with a valid row "
+                  f"{int(valid.any(1).sum())}: kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, torch.bmm {lib_ms:.4f} ms (bf16 out; a "
+                  f"yardstick the port never calls), bound {b_ms:.4f} ms "
+                  f"({b_by})")
+            rows[where, d] = (ms, pms, lib_ms, b_ms, b_by)
+        # the device time of every expert-GEMM and flash launch of one
+        # prefill and one decode step, in place (CUDA events around each)
+        spans = []
+
+        def evented(kind, inner):
+            def run(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = inner(*args, **kw)
+                end.record()
+                spans.append((kind, start, end))
+                return out
+            return run
+
+        logits, cache = prefill(params, toks0)       # warm
+        tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        moe.grouped_gemm = evented("prefill", kernel_gemm)
+        attention.flash_attention_bshd = evented("flash", kernel_bshd)
+        try:
+            logits, cache = prefill(params, toks0)
+            moe.grouped_gemm = evented("decode", kernel_gemm)
+            step(params, tok, cache)
+        finally:
+            moe.grouped_gemm = kernel_gemm
+            attention.flash_attention_bshd = kernel_bshd
+        torch.cuda.synchronize()
+        in_place = {kind: sum(a.elapsed_time(b) for k, a, b in spans
+                              if k == kind)
+                    for kind in ("prefill", "decode", "flash")}
+        check([k for k, _, _ in spans].count("prefill") == per_prefill,
+              "the timed prefill missed expert-GEMM launches")
+        wave_ms, step_ms = in_place["prefill"], in_place["decode"]
+        del logits, cache
+
+        q, k, v, kw = flash_in[0]
+        f_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3)
+        f_pms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        f_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 5)
+        f_bound, _ = flash_bound(q, k, v, kw["causal"], kw["window"])
+        print(f"flash at layer 0 of a wave, q {tuple(q.shape)} {kw}: kernel "
+              f"{f_ms:.3f} ms, plain {f_pms:.3f} ms, SDPA {f_lib:.3f} ms (a "
+              f"yardstick the port never calls), bound {f_bound:.4f} ms")
+
+        prefill_ms = host_ms(lambda: prefill(params, toks0), 3)
+        decode_ms = []
+        for _ in range(2):   # the second run is warm
+            logits, cache = prefill(params, toks0)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MAX_NEW - 1):
+                tok, _, cache = step(params, tok, cache)
+                tok = tok[:, None]
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3 / (MAX_NEW - 1))
+            del logits, cache
+        # where the time goes: device time by kernel name, over the wall
+        # time measured without the profiler
+        logits, cache = prefill(params, toks0)
+        tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+        profiles = {"prefill": (prefill_ms, device_times(
+                        lambda: prefill(params, toks0))),
+                    "decode step": (decode_ms[-1], device_times(
+                        lambda: step(params, tok, cache)))}
+        del logits, cache
+    for name, (wall, times) in profiles.items():
+        if not times:
+            print(f"{name}: torch.profiler saw no device time (not measured)")
+            continue
+        busy = sum(times.values())
+        top = sorted(times.items(), key=lambda kv: -kv[1])[:8]
+        print(f"{name}: device busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"({100 * busy / wall:.1f}%; torch.profiler); top kernels: "
+              + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top))
+    wave_bound = sum(b for _, b in launch_work["prefill"])
+    step_bound = sum(b for _, b in launch_work["decode"])
+    print(f"MoE wave: prefill {prefill_ms:.3f} ms (median of 3), of which "
+          f"the {per_prefill} expert-GEMM launches {wave_ms:.3f} ms "
+          f"({100 * wave_ms / prefill_ms:.1f}%; bound {wave_bound:.4f} ms) "
+          f"and the {cfg.n_layers} flash launches {in_place['flash']:.3f} ms "
+          f"({100 * in_place['flash'] / prefill_ms:.1f}%), device time in "
+          f"place; decode {decode_ms[-1]:.3f} ms per token, of which the "
+          f"expert GEMM {step_ms:.3f} ms (bound {step_bound:.4f} ms; "
+          f"{BATCH} sequences, {1e3 * BATCH / decode_ms[-1]:.1f} tokens/s); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ms, pms, lib_ms, b_ms, b_by = rows["prefill", cfg.d_model]
+    entry = {
+        "name": "moe_gemm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm/moe_gemm.py:22",
+        "launches": total_launches,
+        "max_abs_err": worst_abs,
+        # one prefill gate launch of a wave (layer 0: x (64, 968, 2048)
+        # bf16, f32 out); library_ms is torch.bmm on the pre-masked inputs
+        "ms": ms,
+        "plain_ms": pms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": lib_ms,
+        "shapes": {f"{w_} d={d}": dict(zip(
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r))
+            for (w_, d), r in rows.items()},
+        # summed over the launches of one wave's prefill and of one decode
+        # step, timed in place
+        "wave_prefill_ms": wave_ms,
+        "wave_prefill_bound_ms": wave_bound,
+        "decode_step_ms": step_ms,
+        "decode_step_bound_ms": step_bound,
+    }
+    flash = {"moe_ms": f_ms, "moe_plain_ms": f_pms, "moe_library_ms": f_lib,
+             "moe_bound_ms": f_bound}
+    return entry, flash
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -621,6 +1134,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import build
     from repro_torch.kernels.flash import flash
+    from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.sspnna import sspnna
 
     card = card_line()
@@ -633,7 +1147,7 @@ def main() -> int:
     phase = Phases()
 
     phase("build")
-    kernels = (sspnna.KERNEL, flash.KERNEL)
+    kernels = (sspnna.KERNEL, flash.KERNEL, moe_gemm.KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
         list(pool.map(build.build, kernels))
     print(f"build: {', '.join(kernels)} for sm_90a")
@@ -641,6 +1155,16 @@ def main() -> int:
     results = [scn_path(dev, phase)]
     torch.cuda.empty_cache()
     results.append(lm_path(dev, phase))
+    # the Gemma engine's stage callbacks hold it (and its weights) in a
+    # cycle: collect it before Moonshot's 55 GB of weights need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"after the LM path: {held:.2f} GiB still allocated")
+    check(held < 1.0, "the LM path's tensors were not freed")
+    moe_entry, flash_moe = moe_path(dev, phase)
+    results[1].update(flash_moe)
+    results.append(moe_entry)
     phase.end()
 
     print(f"card: {card}")

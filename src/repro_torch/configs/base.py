@@ -82,6 +82,50 @@ class ModelConfig:
     def layer_kind(self, i: int) -> str:
         return self.attn_pattern[i % len(self.attn_pattern)]
 
+    def param_count(self) -> int:
+        """Analytical parameter count (the JAX package's, term for term)."""
+        d, v = self.d_model, self.vocab_padded
+        att = (d * self.n_heads * self.head_dim * 2
+               + d * self.n_kv_heads * self.head_dim * 2)
+        if self.act in ("swiglu", "geglu"):
+            ffn = 3 * d * self.d_ff
+        else:
+            ffn = 2 * d * self.d_ff
+        total = 0
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind in (GLOBAL, LOCAL):
+                total += att
+            elif kind == RWKV:
+                total += 4 * d * d + 2 * d * self.d_ff + d * d  # tm + cm approx
+                continue  # rwkv channel-mix replaces ffn
+            elif kind == RGLRU:
+                r = self.rglru_dim or d
+                total += 2 * d * r + r * d + 2 * r * self.conv1d_width
+            if self.is_moe and (i % self.moe.moe_layer_period == 0):
+                total += self.moe.n_experts * ffn + d * self.moe.n_experts
+            else:
+                total += ffn
+        total += v * d * (1 if self.tie_embeddings else 2)
+        enc_att = att
+        total += self.encoder_layers * (enc_att + ffn
+                                        + (att if self.is_encdec else 0))
+        return total
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        ffn = (3 if self.act in ("swiglu", "geglu") else 2) * d * self.d_ff
+        n_moe_layers = self.n_layers // self.moe.moe_layer_period
+        dense_total = self.param_count() - n_moe_layers * (
+            self.moe.n_experts * ffn
+        )
+        return dense_total + self.n_layers // self.moe.moe_layer_period * (
+            self.moe.top_k * ffn
+        )
+
     def reduced(self) -> "ModelConfig":
         """Family-preserving small config for CPU tests (the JAX package's
         ``reduced()``, field for field)."""

@@ -11,7 +11,8 @@ NEG_INF = -1e30
 # (b, sq, skv, hq, hkv, d, causal, window, softcap, dtype). Causal and not,
 # sq < skv, windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2,
 # lengths that are not multiples of the kernel's 64-row tiles, and sq > skv
-# (rows before the first key see nothing and give 0).
+# (rows before the first key see nothing and give 0); the last is the MoE
+# LM's prefill (bf16, causal, D=128, GQA group 1, no softcap, no window).
 FLASH_CASES = [
     (2, 200, 200, 4, 4, 64, True, None, None, torch.float32),
     (1, 130, 333, 4, 2, 128, True, None, 50.0, torch.float32),
@@ -21,6 +22,7 @@ FLASH_CASES = [
     (2, 64, 64, 2, 1, 32, True, None, 30.0, torch.float32),
     (1, 100, 260, 2, 2, 128, False, 50, None, torch.bfloat16),
     (1, 80, 40, 2, 2, 64, True, None, None, torch.float32),
+    (2, 200, 200, 4, 4, 128, True, None, None, torch.bfloat16),
 ]
 # kernel vs plain version, max |got - want| / max(|want|, 1): f32 sums of D
 # products and of a row's p*v terms in another order than the plain

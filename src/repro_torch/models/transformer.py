@@ -1,9 +1,11 @@
-"""Dense decoder LM: prefill/train forward and cached decode (port of
-``repro.models.transformer``, ``GLOBAL`` and ``LOCAL`` attention layers).
+"""Decoder LM: prefill/train forward and cached decode (port of
+``repro.models.transformer``, ``GLOBAL`` and ``LOCAL`` attention layers,
+dense or MoE feed-forward).
 
 Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
 ``lm_head`` (untied configs only) and ``layers``, one dict per layer
-(``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``ln2``, ``mlp``).
+(``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``ln2``, and ``mlp``
+or, every ``moe_layer_period``-th layer of an MoE config, ``moe``).
 The JAX package stacks layers per cycle of ``attn_pattern`` and scans
 them; the port loops over layers in Python, and ``params_from_jax``
 un-stacks a JAX tree into this list.
@@ -12,9 +14,11 @@ Two modes share one layer: ``forward`` (``mode="train"`` or ``"prefill"``,
 which also emits the per-layer KV cache) and ``decode_step`` (one token
 against the cache). A cache is ``{"layers": [{"k", "v"}, ...], "pos": t}``
 with each layer's ``(B, S_buf, Hkv, D)`` buffers. Prefill routes attention
-through the flash kernel (``models.attention.chunked_attention``).
+through the flash kernel (``models.attention.chunked_attention``), and
+the MoE layers' expert products through the grouped expert GEMM
+(``models.moe``).
 
-MoE, RWKV, RG-LRU, encoder-decoder and frontend layers raise
+RWKV, RG-LRU, encoder-decoder and frontend layers raise
 ``NotImplementedError``: they come with later slices of the port.
 """
 from __future__ import annotations
@@ -32,10 +36,10 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
 from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.moe import apply_moe, init_moe, moe_capacity
 
 # ROADMAP.md, queue 1, names the slice that brings each of these
 _LATER = {
-    "moe": "the MoE LM slice",
     "encdec": "the slice of the rest of the LM stack",
     "frontend": "the slice of the rest of the LM stack",
     "recurrent": "the slice of the rest of the LM stack",
@@ -45,9 +49,7 @@ _LATER = {
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for layers the port has no code for."""
     why = None
-    if cfg.is_moe:
-        why = "moe"
-    elif cfg.is_encdec:
+    if cfg.is_encdec:
         why = "encdec"
     elif cfg.frontend is not None:
         why = "frontend"
@@ -55,7 +57,7 @@ def check_supported(cfg: ModelConfig) -> None:
         why = "recurrent"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GLOBAL/LOCAL decoders only; "
+            f"{cfg.name}: the port runs GLOBAL/LOCAL decoders only; "
             f"{why} layers come with {_LATER[why]} (ROADMAP.md, queue 1)")
 
 
@@ -66,7 +68,8 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
             generator: torch.Generator | None = None) -> dict:
     """Random parameters: ``dense_init`` normals drawn from ``generator``
-    (seed 0 on the CPU when omitted), norms at 1."""
+    (seed 0 on the CPU when omitted; a generator on the card draws there,
+    which a full-size model needs), norms at 1."""
     check_supported(cfg)
     dev = require_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
@@ -88,9 +91,16 @@ def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
                   "wv": w((d, cfg.n_kv_heads * hd)),
                   "wo": w((cfg.n_heads * hd, d))},
          "ln2": ones(),
-         "mlp": init_mlp(g, d, cfg.d_ff, cfg.act, dt, dev)}
-        for _ in range(cfg.n_layers)]
+         **_init_ffn(g, cfg, i, dt, dev)}
+        for i in range(cfg.n_layers)]
     return params
+
+
+def _init_ffn(g, cfg: ModelConfig, i: int, dt, dev) -> dict:
+    if cfg.is_moe and i % cfg.moe.moe_layer_period == 0:
+        return {"moe": init_moe(g, cfg.d_model, cfg.d_ff, cfg.moe.n_experts,
+                                cfg.act, dt, dev)}
+    return {"mlp": init_mlp(g, cfg.d_model, cfg.d_ff, cfg.act, dt, dev)}
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -105,7 +115,7 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
     """The JAX package's ``init_lm`` tree (numpy leaves) as the port's
     parameters: ``tree["cycles"][j]`` stacks layer ``i*len(pattern)+j`` at
     index ``i``, and ``tree["rem"]`` holds the layers after the last full
-    cycle."""
+    cycle. Leaves keep their dtype (an MoE router stays f32)."""
     check_supported(cfg)
     dev = require_device(device)
 
@@ -177,15 +187,32 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
     return o.reshape(b, o.shape[1], -1) @ p["wo"], new_cache
 
 
+def _ffn(p, x, cfg: ModelConfig, moe_groups: int | None):
+    """Feed-forward -> (y, aux); an MoE layer routes ``b*s`` tokens in
+    ``moe_groups`` groups (default: one group per batch row)."""
+    if "moe" in p:
+        b, s, d = x.shape
+        g = moe_groups or b
+        xg = x.reshape(g, (b * s) // g, d)
+        cap = moe_capacity((b * s) // g, cfg.moe.top_k, cfg.moe.n_experts,
+                           cfg.moe.capacity_factor)
+        y, aux = apply_moe(p["moe"], xg, top_k=cfg.moe.top_k, capacity=cap,
+                           act=cfg.act)
+        return y.reshape(b, s, d), aux
+    return apply_mlp(p["mlp"], x, cfg.act), {}
+
+
 def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
-                pos: int = 0, cache_pad: int = 0):
-    """Returns (x, new_cache)."""
+                pos: int = 0, cache_pad: int = 0,
+                moe_groups: int | None = None):
+    """Returns (x, new_cache, aux)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     o, new_cache = _self_attention(p["attn"], h, cfg, kind, mode, cache, pos,
                                    cache_pad)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h, cfg.act), new_cache
+    y, aux = _ffn(p, h, cfg, moe_groups)
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -210,28 +237,34 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            cache_pad: int = 0, last_only: bool = False):
-    """tokens: (B, S) -> (logits (B, S, Vp) f32, cache or None, aux {}).
+            moe_groups: int | None = None, cache_pad: int = 0,
+            last_only: bool = False):
+    """tokens: (B, S) -> (logits (B, S, Vp) f32, cache or None, aux).
 
-    ``last_only`` applies the head to the last position only (logits
-    (B, 1, Vp)): what a prefill needs, without the (B, S, Vp) f32 array.
+    ``aux`` sums the MoE layers' auxiliaries (``models.moe.apply_moe``)
+    over the layers; it is empty for a dense model. ``last_only`` applies
+    the head to the last position only (logits (B, 1, Vp)): what a prefill
+    needs, without the (B, S, Vp) f32 array.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r} is not 'train' or 'prefill'")
     check_supported(cfg)
     x = _embed(params, cfg, tokens)
     caches = []
+    aux_sum: dict = {}
     for i, lp in enumerate(params["layers"]):
-        x, c = apply_layer(lp, x, cfg.layer_kind(i), cfg, mode,
-                           cache_pad=cache_pad)
+        x, c, aux = apply_layer(lp, x, cfg.layer_kind(i), cfg, mode,
+                                cache_pad=cache_pad, moe_groups=moe_groups)
         caches.append(c)
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum[k] + v if k in aux_sum else v
     if last_only:
         x = x[:, -1:]
     logits = _logits(params, cfg, x)
     cache = None
     if mode == "prefill":
         cache = {"layers": caches, "pos": tokens.shape[1]}
-    return logits, cache, {}
+    return logits, cache, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -255,14 +288,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     return {"layers": layers, "pos": cache_len}
 
 
-def decode_step(params, cfg: ModelConfig, token, cache: dict):
+def decode_step(params, cfg: ModelConfig, token, cache: dict, *,
+                moe_groups: int | None = None):
     """token: (B, 1) -> (logits (B, 1, Vp), cache advanced by one position;
     the layers' buffers are updated in place)."""
     x = _embed(params, cfg, token)
     pos = cache["pos"]
     layers = []
     for i, lp in enumerate(params["layers"]):
-        x, c = apply_layer(lp, x, cfg.layer_kind(i), cfg, "decode",
-                           cache=cache["layers"][i], pos=pos)
+        x, c, _ = apply_layer(lp, x, cfg.layer_kind(i), cfg, "decode",
+                              cache=cache["layers"][i], pos=pos,
+                              moe_groups=moe_groups)
         layers.append(c)
     return _logits(params, cfg, x), {"layers": layers, "pos": pos + 1}

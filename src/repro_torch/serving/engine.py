@@ -41,9 +41,10 @@ def make_prefill(cfg: ModelConfig, cache_pad: int = 0):
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, moe_groups: int | None = None):
     def serve_step(params, token, cache):
-        logits, cache = decode_step(params, cfg, token, cache)
+        logits, cache = decode_step(params, cfg, token, cache,
+                                    moe_groups=moe_groups)
         next_tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)
         return next_tok.to(torch.int32), logits[:, -1], cache
 

@@ -14,6 +14,13 @@ from repro_torch.configs import get_config
 from repro_torch.data.scenes import N_CLASSES, make_scene
 from repro_torch.kernels.flash.flash import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash.ref import FLASH_CASES, FLASH_TOL, random_qkv
+from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+from repro_torch.kernels.moe_gemm.ref import (
+    MOE_GEMM_CASES,
+    grouped_gemm_ref,
+    moe_gemm_tol,
+    random_moe_inputs,
+)
 from repro_torch.kernels.sspnna.ref import random_tile_tables
 from repro_torch.kernels.sspnna.sspnna import sspnna_fused, sspnna_fused_plain
 from repro_torch.models import transformer
@@ -147,6 +154,64 @@ def test_prefill_launches_flash_once_per_layer(cuda_device):
         assert n == (cfg.n_layers if dev == cuda_device else 0)
         out[str(dev)] = [logits] + [c[x] for c in cache["layers"]
                                     for x in ("k", "v")]
+    for got, want in zip(out["cuda"], out["cpu"], strict=True):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def moe_case_id(case):
+    e, c, d, f, share, dt, odt = case
+    return (f"e{e}c{c}d{d}f{f}v{share}-{str(dt).removeprefix('torch.')}-"
+            f"{str(odt).removeprefix('torch.')}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "x_off_16B"])
+@pytest.mark.parametrize("case", MOE_GEMM_CASES, ids=moe_case_id)
+def test_moe_gemm_kernel_matches_plain(cuda_device, case, aligned):
+    e, c, d, f, share, dt, odt = case
+    xin, w, valid = (x.to(cuda_device) for x in random_moe_inputs(
+        np.random.default_rng(c + d + f), e=e, c=c, d=d, f=f,
+        valid_share=share, dtype=dt))
+    if not aligned:  # a contiguous view one element into its storage
+        flat = torch.empty(xin.numel() + 1, dtype=dt, device=cuda_device)
+        flat[1:] = xin.reshape(-1)
+        xin = flat[1:].view(e, c, d)
+    launches = grouped_gemm.launches
+    got = grouped_gemm(xin, w, valid, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert grouped_gemm.launches == launches + 1
+    assert got.dtype == odt and not got[~valid].any()
+    want = grouped_gemm_ref(xin, w, valid, odt)
+    tol = moe_gemm_tol(dt, odt)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_moe_prefill_launches_grouped_gemm_per_moe_layer(cuda_device):
+    """A reduced Moonshot prefill on the card: three expert-GEMM launches
+    per MoE layer, one flash launch per layer, and the logits, caches and
+    aux of the CPU's plain versions."""
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 40)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = transformer.init_lm(cfg, device=dev)
+        launches = grouped_gemm.launches, flash_attention.launches
+        with torch.inference_mode():
+            logits, cache, aux = transformer.forward(
+                params, cfg, toks.to(dev), mode="prefill", cache_pad=4)
+        torch.cuda.synchronize()
+        n = (grouped_gemm.launches - launches[0],
+             flash_attention.launches - launches[1])
+        assert n == ((3 * cfg.n_layers, cfg.n_layers) if dev == cuda_device
+                     else (0, 0))
+        out[str(dev)] = ([logits] + [c[x] for c in cache["layers"]
+                                     for x in ("k", "v")]
+                         + [aux[k] for k in sorted(aux)])
     for got, want in zip(out["cuda"], out["cpu"], strict=True):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)

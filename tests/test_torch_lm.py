@@ -22,7 +22,7 @@ from repro.models import common as jcommon
 from repro.models import mlp as jmlp
 from repro.models import transformer as jtransformer
 from repro_torch.configs import get_config, list_configs
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash.flash import flash_attention
 from repro_torch.models import attention, common, mlp, transformer
 
@@ -52,7 +52,7 @@ def test_config_matches_jax(name, reduced):
 
 
 def test_registry():
-    assert list_configs() == sorted(ARCHS)
+    assert list_configs() == sorted(ARCHS + ["moonshot-v1-16b-a3b"])
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("granite-8b")
 
@@ -254,8 +254,8 @@ def test_init_lm_is_seeded_and_shaped_like_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(moe=MoEConfig(n_experts=4, top_k=2)), dict(encoder_layers=2),
-    dict(frontend="vision"), dict(attn_pattern=("rwkv",))])
+    dict(encoder_layers=2), dict(frontend="vision"),
+    dict(attn_pattern=("rwkv",))])
 def test_layers_of_later_slices_raise(change):
     cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(), **change)
     assert isinstance(cfg, ModelConfig)
