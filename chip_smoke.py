@@ -19,11 +19,27 @@
 4. Replays every SSpNNA launch of seed 0's forward against the plain
    version at its real inputs, and times kernel, plain version and the
    end-to-end forward with CUDA events / synchronized host clocks.
-5. Holds the flash attention kernel against its plain version on random
+5. Holds the pre-gathered tile-stack kernel (``sspnna_tiles``) against its
+   plain version on random stacks (``kernels/sspnna/ref.TILE_STACK_CASES``:
+   f32 and bf16, K 27 and 8, ragged C and N, all-hole tiles).
+6. Drives the pre-gathered path on seed 0's scene: the standalone layer
+   path (COIR, strided and transposed tables built on the card and held
+   equal to the host planner's, ``conv_plan_for_layer``, ``sparse_conv``),
+   each of the forward's recorded fused calls through
+   ``run_sspnna_conv(fused=False)`` (held against the fused output), and at
+   each level a plane-split plan (``delta_i`` one below the level's
+   largest working set, ``n_row_splits > 0``) held against the reference
+   product. The tile-stack kernel's launch count must equal the calls
+   made. Each launch is held against the plain version at its real inputs
+   and timed beside its bound, the whole pre-gathered conv and
+   ``torch.matmul`` of the already-gathered block (a yardstick the port
+   never calls); then the whole forward runs with ``use_kernel=False``,
+   launching no kernel, and its logits must match ``auto``'s.
+7. Holds the flash attention kernel against its plain version on random
    q, k, v (``kernels/flash/ref.FLASH_CASES``: causal and not, sq < skv,
    windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2, ragged
    lengths).
-6. Drives the LM serving path: Gemma-2 2B at its published widths (26
+8. Drives the LM serving path: Gemma-2 2B at its published widths (26
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
    4096, softcaps 50 and 30), bf16, random weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``. An ``Engine`` (batch 2, prompt
@@ -33,16 +49,16 @@
    must be equal, and each wave's last-position logits must match the same
    weights with the attention's plain version, in f32 (the weights cast up)
    and in bf16 (first tokens equal).
-7. Replays every flash launch of one wave's prefill against the plain
+9. Replays every flash launch of one wave's prefill against the plain
    version and times kernel, plain version and bound; at the global-layer
    shape it also times the kernel without softcap beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
    Then times one wave's prefill and its decode steps.
-8. Frees the Gemma path and holds the grouped expert GEMM kernel against
+10. Frees the Gemma path and holds the grouped expert GEMM kernel against
    its plain version (``kernels/moe_gemm/ref.MOE_GEMM_CASES``: the JAX
    test's shapes, ragged C, d and f, an expert with no valid row, C = 8,
    f32 and bf16 with both output dtypes).
-9. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
+11. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
    and depth (48 layers, d_model 2048, 16 heads of 128, 64 experts top-6 of
    d_ff 1408, vocab 163840; 27.7 B parameters), bf16, random weights drawn
    on the card. An ``Engine`` (batch 2, prompt length 4096, 16 new tokens)
@@ -50,12 +66,12 @@
    launch flash once per layer in its prefill and the expert GEMM three
    times per layer in its prefill and in each decode step, and both runs
    must emit the same tokens.
-10. Checks every expert-GEMM launch of one wave's prefill and of one decode
+12. Checks every expert-GEMM launch of one wave's prefill and of one decode
    step against the plain version at its real inputs; the last-position
    logits at full width and 4 layers against the plain expert products in
    f32 and bf16; and reports (ungated) the full-depth bf16 logits against
    the plain expert products, for which no f32 noise floor fits the card.
-11. Times the kernel at the path's three launch shapes beside its plain
+13. Times the kernel at the path's three launch shapes beside its plain
    version, ``torch.bmm`` (a yardstick the port never calls) and its bound;
    flash at the path's D=128 shape beside SDPA; a wave's prefill and decode.
 
@@ -90,6 +106,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # f32 sums of up to K*C = 27*96 products, taken in another order than the
 # plain version's matmul
 KERNEL_TOL = 1e-4
+# sspnna_tiles against its plain version on random stacks, max abs error /
+# max(|want|, 1): f32 sums in another order; bf16 outputs rounded to bf16
+TILES_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # end-to-end: 17 convs, each followed by a BatchNorm that divides by the
 # per-channel std, so per-conv reorderings of ~1e-6 grow layer by layer
 LOGITS_TOL = 1e-3
@@ -267,10 +286,12 @@ class Phases:
         self.name = None
 
 
-def scn_path(dev: torch.device, phase: Phases) -> dict:
+def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     """Phases 2-4: ``sspnna_fused`` on random tables, the SCN forward on
     three scenes, and the replay of seed 0's launches. Returns the kernel's
-    JSON entry."""
+    JSON entry and what the pre-gathered phase reuses of seed 0 (model,
+    features, coords, host and uploaded plans, recorded fused calls, the
+    auto logits)."""
     from repro_torch import engine
     from repro_torch.data.scenes import make_scene
     from repro_torch.kernels.flash.flash import flash_attention
@@ -329,7 +350,7 @@ def scn_path(dev: torch.device, phase: Phases) -> dict:
                       + (cfg.reps if li < len(plan.levels) - 1 else 0))
         return n
 
-    fused.launches = flash_attention.launches = 0
+    fused.launches = flash_attention.launches = sspnna.sspnna_tiles.launches = 0
     uploaded = {}
     with torch.inference_mode():
         for seed, feats, labels, mask, host in requests:
@@ -361,6 +382,8 @@ def scn_path(dev: torch.device, phase: Phases) -> dict:
             check(rel_err <= LOGITS_TOL, "auto and reference logits disagree")
     total_launches = fused.launches
     check(flash_attention.launches == 0, "the SCN path launched flash")
+    check(sspnna.sspnna_tiles.launches == 0,
+          "the SCN path launched sspnna_tiles")
 
     phase("SCN replay")
     calls = []
@@ -374,7 +397,7 @@ def scn_path(dev: torch.device, phase: Phases) -> dict:
     ops.sspnna_fused = record
     try:
         with torch.inference_mode():
-            engine.apply_unet(model, feats0, plan0, device=dev)
+            logits0 = engine.apply_unet(model, feats0, plan0, device=dev)
     finally:
         ops.sspnna_fused = fused
     rows = []  # one per launch: level, kernel ms, plain ms, bound ms, bound by
@@ -415,7 +438,7 @@ def scn_path(dev: torch.device, phase: Phases) -> dict:
     print(f"forward seed={seed0}: auto {fwd_auto:.3f} ms, reference "
           f"{fwd_ref:.3f} ms (median of 5, host clock after synchronize); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return {
+    entry = {
         "name": "sspnna_fused",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sspnna_fused.cu",
@@ -429,10 +452,310 @@ def scn_path(dev: torch.device, phase: Phases) -> dict:
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "library_ms": None,
     }
+    seed0_state = {"cfg": cfg, "model": model, "feats": feats0,
+                   "coords": requests[0][4].levels[0].coords,
+                   "host": requests[0][4], "plan": plan0, "calls": calls,
+                   "logits": logits0}
+    return entry, seed0_state
+
+
+def tiles_bound(feats, local_idx, weights):
+    """Least time (ms) for one ``sspnna_tiles`` launch, and what bounds it:
+    2*C*N FLOPs per pair (non-hole index) over the fp32 peak, against the
+    bytes the function must move over the memory rate: each (tile, row) of
+    the (T, dI, C) stack that ``local_idx`` references, W and local_idx read
+    once, the (T, dO, N) output written once. Padded slots and the rows of
+    dead tiles are never read, so they are not counted (as for the fused
+    kernel's bound)."""
+    t, d_o, _ = local_idx.shape
+    d_i, c, n = feats.shape[1], feats.shape[2], weights.shape[2]
+    live = local_idx >= 0
+    pairs = int(live.sum())
+    t_index = torch.arange(t, device=local_idx.device).view(t, 1, 1)
+    rows_in = int(torch.unique((t_index * d_i + local_idx)[live]).numel())
+    flops = 2.0 * pairs * c * n
+    nbytes = float(feats.element_size() * (rows_in * c + weights.numel()
+                                           + t * d_o * n)
+                   + 4 * local_idx.numel())
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
+    """Phases 5-6: ``sspnna_tiles`` on random stacks, then the pre-gathered
+    path on seed 0's scene: the standalone layer path (COIR, strided and
+    transposed tables built on the card, ``conv_plan_for_layer``,
+    ``sparse_conv``), every recorded fused call through
+    ``run_sspnna_conv(fused=False)`` and a plane-split conv at each level,
+    each launch replayed against the plain version and timed, and the
+    whole forward with ``use_kernel=False``. Returns the kernel's JSON
+    entry."""
+    from repro_torch import engine
+    from repro_torch.core import soar
+    from repro_torch.core.sparse_conv import (
+        SparseConvParams,
+        init_sparse_conv,
+        reference_conv_cirf,
+        strided_conv,
+        submanifold_coir,
+        transposed_coir,
+    )
+    from repro_torch.core.tiles import build_tile_plan, modeled_hbm_bytes
+    from repro_torch.kernels.sspnna import ops, sspnna
+    from repro_torch.kernels.sspnna.ref import TILE_STACK_CASES, random_tile_stack
+    from repro_torch.sparse.tensor import SparseVoxelTensor
+
+    tiles, plain = sspnna.sspnna_tiles, sspnna.sspnna_tiles_plain
+    fused = sspnna.sspnna_fused
+    cfg, model, host, plan = (seed0[k] for k in ("cfg", "model", "host", "plan"))
+
+    phase("sspnna_tiles random stacks")
+    worst_abs = 0.0
+    rng = np.random.default_rng(0)
+    for t, d_i, d_o, k, c, n, dt in TILE_STACK_CASES:
+        feats, idx, w = (x.to(dev) for x in random_tile_stack(
+            rng, t=t, d_i=d_i, d_o=d_o, k=k, c=c, n=n, dtype=dt))
+        got, want = tiles(feats, idx, w), plain(feats, idx, w)
+        torch.cuda.synchronize()
+        abs_err, rel_err = max_err(got.float(), want.float())
+        dead = int((idx < 0).all(dim=(1, 2)).sum())
+        print(f"random stack T={t} dI={d_i} dO={d_o} K={k} C={c} N={n} "
+              f"{str(dt).removeprefix('torch.')} all-hole tiles={dead}: max "
+              f"abs {abs_err:.3g} rel {rel_err:.3g} (tol {TILES_TOL[dt]})")
+        check(rel_err <= TILES_TOL[dt], "sspnna_tiles disagrees with its "
+              "plain version")
+        worst_abs = max(worst_abs, abs_err)
+
+    phase("SSpNNA pre-gathered")
+    # host: each tiled level's SOAR order (the planner's own: order="soar",
+    # chunk 512), its tile plan rebuilt (for the modeled bytes) and a
+    # plane-split plan (delta_i one below the level's largest working set)
+    levels = {}
+    for li, lvl in enumerate(host.levels):
+        if lvl.sub.tiles is None:
+            continue
+        idx, mask = lvl.sub.coir.indices, lvl.mask
+        d = lvl.sub.dispatch
+        order = soar.soar_order(idx, mask, 512).order
+        tp = build_tile_plan(idx, order, d.delta_o, d.delta_i)
+        check(np.array_equal(tp.local_idx, lvl.sub.tiles.local_idx),
+              f"level {li}: rebuilt tile plan differs from the scene plan's")
+        split_di = int((idx >= 0).sum(1).max()) - 1
+        split = build_tile_plan(idx, order, d.delta_o, split_di)
+        print(f"level {li}: plane-split plan dO={d.delta_o} dI={split_di}: "
+              f"T={split.n_tiles}, n_row_splits={split.n_row_splits}")
+        check(split.n_row_splits > 0, f"level {li}: no plane split")
+        levels[li] = (order, tp, split)
+
+    recorded = []  # (args, kw) of every sspnna_tiles call on the main path
+
+    def record(*args, **kw):
+        recorded.append((args, kw))
+        return tiles(*args, **kw)
+
+    check(0 in levels, "level 0 is not tiled")
+    calls = seed0["calls"]
+    level_of = [next(li for li, lvl in enumerate(plan.levels)
+                     if lvl.sub.tiles is not None
+                     and lvl.sub.tiles.local_idx is args[4])
+                for args, _ in calls]
+    first_call = {li: i for i, li in reversed(list(enumerate(level_of)))}
+    tiles.launches = fused.launches = 0
+    ops.sspnna_tiles = record
+    try:
+        with torch.inference_mode():
+            # the standalone layer path at level 0, tables built on the card
+            lvl0, res = host.levels[0], cfg.resolution
+            t0 = SparseVoxelTensor(*(torch.from_numpy(x).to(dev) for x in (
+                lvl0.coords, seed0["feats"], lvl0.mask)))
+            coir = submanifold_coir(t0, res)
+            down = init_sparse_conv(torch.Generator().manual_seed(1), 8,
+                                    cfg.in_channels, cfg.widths[1], device=dev)
+            coarse, _, down_coir = strided_conv(t0, res, down)
+            down_ref = engine.sparse_conv(t0.feats, down, plan.levels[0].down)
+            up_coir = transposed_coir(coarse, t0.coords, t0.mask, res)
+            d = lvl0.sub.dispatch
+            cp = engine.conv_plan_for_layer(coir, levels[0][0], d.delta_o,
+                                            d.delta_i, device=dev)
+            stem = model.stem.params
+            layer_fused = engine.sparse_conv(t0.feats, stem, cp, backend="sspnna")
+            layer_pg = ops.run_sspnna_conv(
+                t0.feats, stem.weight, cp.tiles.out_rows, cp.tiles.in_rows,
+                cp.tiles.local_idx, n_out=cfg.capacity, fused=False)
+            # every recorded fused call of the forward, pre-gathered
+            pg_out = [ops.run_sspnna_conv(*args[:5], n_out=kw["n_out"],
+                                          fused=False)
+                      for args, kw in calls]
+            # a plane-split conv at each level, on the level's first
+            # recorded call's input and weights
+            split_out = {}
+            for li, (_, _, split) in levels.items():
+                x, w = calls[first_call[li]][0][:2]
+                split_out[li] = ops.run_sspnna_conv(
+                    x, w, *(torch.from_numpy(a).to(dev) for a in (
+                        split.out_rows, split.in_rows, split.local_idx)),
+                    n_out=cfg.capacity, fused=False)
+            torch.cuda.synchronize()
+    finally:
+        ops.sspnna_tiles = tiles
+    main_launches = tiles.launches
+    expected = 1 + len(calls) + len(levels)
+    print(f"pre-gathered path: sspnna_tiles launches {main_launches} "
+          f"(calls {len(recorded)}: 1 standalone layer, {len(calls)} "
+          f"recorded convs, {len(levels)} plane-split convs); sspnna_fused "
+          f"launches {fused.launches}")
+    check(main_launches == expected == len(recorded),
+          f"sspnna_tiles launched {main_launches} times for {expected} calls")
+    check(fused.launches == 1, "the standalone sparse_conv did not launch "
+          "the fused kernel once")
+
+    # the standalone layer path's tables against the host planner's
+    host_tables = [(coir.indices, lvl0.sub.coir.indices, "submanifold COIR"),
+                   (coir.bitmask, lvl0.sub.coir.bitmask.astype(np.int32),
+                    "submanifold bitmask"),
+                   (coarse.coords, host.levels[1].coords, "downsampled coords"),
+                   (coarse.mask, host.levels[1].mask, "downsampled mask"),
+                   (down_coir.indices, lvl0.down.coir.indices, "strided COIR"),
+                   (up_coir.indices, lvl0.up.coir.indices, "transposed COIR"),
+                   (cp.tiles.local_idx, lvl0.sub.tiles.local_idx, "tile plan")]
+    for got, want, what in host_tables:
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"{what} built on the card differs from the host planner's")
+    mask0 = t0.mask.unsqueeze(-1)
+    abs_err, rel_err = max_err((layer_pg + stem.bias) * mask0, layer_fused)
+    ref = reference_conv_cirf(t0.feats, coir, stem)
+    print(f"standalone layer path: {int(t0.mask.sum())} voxels, tables equal "
+          f"to the host planner's; sspnna_fused vs reference max abs "
+          f"{max_err(layer_fused, ref)[0]:.3g}; pre-gathered vs fused max abs "
+          f"{abs_err:.3g} rel {rel_err:.3g} (tol {KERNEL_TOL})")
+    check(rel_err <= KERNEL_TOL, "standalone pre-gathered conv disagrees")
+    check(max_err(layer_fused * mask0, ref)[1] <= KERNEL_TOL,
+          "standalone sparse_conv disagrees with reference")
+    check(max_err(coarse.feats, down_ref)[1] <= KERNEL_TOL,
+          "strided_conv disagrees with the scene plan's down conv")
+
+    # every recorded conv, in the three arms of the JAX package's SSpNNA
+    # benchmark (fused, pre-gathered, plain): pre-gathered and plain
+    # against fused; each launch against its plain version at its real
+    # inputs; times, bound, yardstick
+    rows = []  # level, kernel, plain, conv, bound, by, matmul, fused, oracle
+    with torch.inference_mode():
+        for i, ((args, kw), got) in enumerate(zip(calls, pg_out)):
+            want = fused(*args, **kw)
+            abs_err, rel_err = max_err(got, want)
+            check(rel_err <= KERNEL_TOL, f"conv {i}: pre-gathered disagrees "
+                  "with fused")
+            oracle = ops.run_sspnna_conv(*args[:5], n_out=kw["n_out"],
+                                         use_kernel=False)
+            check(max_err(oracle, want)[1] <= KERNEL_TOL,
+                  f"conv {i}: the plain arm disagrees with fused")
+            (tf, idx, w), _ = recorded[1 + i]
+            k_out, p_out = tiles(tf, idx, w), plain(tf, idx, w)
+            k_abs, k_rel = max_err(k_out, p_out)
+            check(k_rel <= KERNEL_TOL, f"conv {i}: sspnna_tiles disagrees "
+                  "with its plain version")
+            worst_abs = max(worst_abs, k_abs)
+            ms = time_ms(lambda: tiles(tf, idx, w), 20)
+            pms = time_ms(lambda: plain(tf, idx, w), 5)
+            conv_ms = time_ms(lambda: ops.run_sspnna_conv(
+                *args[:5], n_out=kw["n_out"], fused=False), 10)
+            fused_ms = time_ms(lambda: fused(*args, **kw), 10)
+            oracle_ms = time_ms(lambda: ops.run_sspnna_conv(
+                *args[:5], n_out=kw["n_out"], use_kernel=False), 5)
+            t, d_o, k = idx.shape
+            c, n = tf.shape[2], w.shape[2]
+            g = torch.gather(tf, 1, idx.clamp(min=0).long().reshape(
+                t, d_o * k, 1).expand(t, d_o * k, c))
+            g = torch.where((idx >= 0).reshape(t, d_o * k, 1), g, 0.0)
+            g = g.reshape(t * d_o, k * c)
+            mm_ms = time_ms(lambda: torch.matmul(g, w.reshape(k * c, n)), 20)
+            del g
+            b_ms, b_by = tiles_bound(tf, idx, w)
+            li = level_of[i]
+            hbm = modeled_hbm_bytes(levels[li][1], c, n)
+            print(f"conv {i} L{li} C={c} N={n} T={t} dO={d_o} dI={tf.shape[1]} "
+                  f"pairs={int((idx >= 0).sum())}: kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), matmul of the "
+                  f"gathered block {mm_ms:.4f} ms; whole conv: fused "
+                  f"{fused_ms:.4f} ms, pre-gathered {conv_ms:.4f} ms, plain "
+                  f"arm {oracle_ms:.4f} ms; pre-gathered vs fused max abs "
+                  f"{abs_err:.3g}, kernel vs plain max abs {k_abs:.3g}; "
+                  f"modeled bytes fused {hbm['fused']} pre-gathered "
+                  f"{hbm['pregathered']}")
+            rows.append((li, ms, pms, conv_ms, b_ms, b_by, mm_ms, fused_ms,
+                         oracle_ms))
+    for li in sorted({r[0] for r in rows}):
+        mine = [r for r in rows if r[0] == li]
+        print(f"level {li}: {len(mine)} launches, kernel "
+              f"{sum(r[1] for r in mine):.4f} ms, plain "
+              f"{sum(r[2] for r in mine):.4f} ms, bound "
+              f"{sum(r[4] for r in mine):.4f} ms, matmul "
+              f"{sum(r[6] for r in mine):.4f} ms; whole convs: fused "
+              f"{sum(r[7] for r in mine):.4f} ms, pre-gathered "
+              f"{sum(r[3] for r in mine):.4f} ms, plain arm "
+              f"{sum(r[8] for r in mine):.4f} ms per forward")
+
+    # plane-split convs against the reference product (no bias, masked)
+    with torch.inference_mode():
+        for j, (li, out) in enumerate(split_out.items()):
+            (tf, idx, w), _ = recorded[1 + len(calls) + j]
+            k_abs, k_rel = max_err(tiles(tf, idx, w), plain(tf, idx, w))
+            check(k_rel <= KERNEL_TOL, f"level {li}: split launch disagrees")
+            worst_abs = max(worst_abs, k_abs)
+            x, wt = calls[first_call[li]][0][:2]
+            lvl = plan.levels[li]
+            ref = reference_conv_cirf(x, lvl.sub.coir, SparseConvParams(
+                wt, torch.zeros(wt.shape[2], device=dev)))
+            abs_err, rel_err = max_err(out * lvl.mask.unsqueeze(-1), ref)
+            ms = time_ms(lambda: tiles(tf, idx, w), 10)
+            print(f"plane-split L{li}: T={tf.shape[0]} n_row_splits="
+                  f"{levels[li][2].n_row_splits}: kernel {ms:.4f} ms; conv vs "
+                  f"reference max abs {abs_err:.3g} rel {rel_err:.3g} (tol "
+                  f"{KERNEL_TOL}); kernel vs plain max abs {k_abs:.3g}")
+            check(rel_err <= KERNEL_TOL, f"level {li}: plane-split conv "
+                  "disagrees with the reference product")
+
+    # the whole forward through the oracle branch: no kernel launches
+    before = tiles.launches, fused.launches
+    with torch.inference_mode():
+        logits = engine.apply_unet(model, seed0["feats"], plan,
+                                   use_kernel=False, device=dev)
+        torch.cuda.synchronize()
+        fwd_ms = host_ms(lambda: engine.apply_unet(
+            model, seed0["feats"], plan, use_kernel=False, device=dev), 3)
+    check((tiles.launches, fused.launches) == before,
+          "use_kernel=False launched a kernel")
+    abs_err, rel_err = max_err(logits, seed0["logits"])
+    print(f"forward use_kernel=False: logits vs auto max abs {abs_err:.3g} "
+          f"rel {rel_err:.3g} (tol {LOGITS_TOL}); {fwd_ms:.3f} ms (median of "
+          "3, host clock after synchronize)")
+    check(rel_err <= LOGITS_TOL, "use_kernel=False logits disagree with auto")
+    by_bytes = sum(r[4] for r in rows if r[5] == "bytes")
+    by_ops = sum(r[4] for r in rows if r[5] == "operations")
+    return {
+        "name": "sspnna_tiles",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sspnna_tiles.cu",
+        "replaces": "src/repro/kernels/sspnna/sspnna.py:93",
+        "launches": main_launches,
+        "max_abs_err": worst_abs,
+        # summed over the launches of one forward's recorded convs (seed 0);
+        # library_ms is torch.matmul of the already-gathered (T*dO, K*C)
+        # block, a yardstick the port never calls
+        "ms": sum(r[1] for r in rows),
+        "plain_ms": sum(r[2] for r in rows),
+        "bound_ms": by_bytes + by_ops,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+        "library_ms": sum(r[6] for r in rows),
+        # the three arms of the whole conv, summed the same way
+        "conv_fused_ms": sum(r[7] for r in rows),
+        "conv_pregathered_ms": sum(r[3] for r in rows),
+        "conv_plain_ms": sum(r[8] for r in rows),
+    }
 
 
 def lm_path(dev: torch.device, phase: Phases) -> dict:
-    """Phases 5-7: the flash kernel on random shapes, Gemma-2 2B served at
+    """Phases 7-9: the flash kernel on random shapes, Gemma-2 2B served at
     full width, and the replay of one wave's launches. Returns the kernel's
     JSON entry."""
     from repro_torch.configs import get_config
@@ -694,7 +1017,7 @@ def moe_gemm_bound(xin, w, valid, out_dtype):
 
 
 def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
-    """Phases 8-11: the expert GEMM on random shapes, Moonshot 16B-A3B
+    """Phases 10-13: the expert GEMM on random shapes, Moonshot 16B-A3B
     served at full width and depth, the checks at real inputs and the
     timings. Returns the kernel's JSON entry and flash's numbers at this
     path's shape."""
@@ -1147,12 +1470,17 @@ def main() -> int:
     phase = Phases()
 
     phase("build")
-    kernels = (sspnna.KERNEL, flash.KERNEL, moe_gemm.KERNEL)
+    kernels = (sspnna.KERNEL, sspnna.TILES_KERNEL, flash.KERNEL,
+               moe_gemm.KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
         list(pool.map(build.build, kernels))
     print(f"build: {', '.join(kernels)} for sm_90a")
 
-    results = [scn_path(dev, phase)]
+    fused_entry, seed0 = scn_path(dev, phase)
+    results = [fused_entry]
+    with torch.inference_mode():  # the model's parameters require grad
+        tiles_entry = pregathered_path(dev, phase, seed0)
+    del seed0
     torch.cuda.empty_cache()
     results.append(lm_path(dev, phase))
     # the Gemma engine's stage callbacks hold it (and its weights) in a
@@ -1165,6 +1493,7 @@ def main() -> int:
     moe_entry, flash_moe = moe_path(dev, phase)
     results[1].update(flash_moe)
     results.append(moe_entry)
+    results.append(tiles_entry)
     phase.end()
 
     print(f"card: {card}")

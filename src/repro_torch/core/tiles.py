@@ -9,6 +9,9 @@ planning error (budgeted mode), so pairs are never dropped.
 Host-side numpy. ``dma_tile_tables`` re-emits a plan in the layout the
 fused kernel reads: input pads clamped to row 0, output pads pointed at the
 trash row ``n_out``, and the per-tile pair counts (0 marks a dead tile).
+``plan_dma_tables`` and ``modeled_hbm_bytes`` count a plan's descriptor
+entries and model the device-memory traffic of the fused and the
+pre-gathered paths.
 """
 from __future__ import annotations
 
@@ -191,3 +194,48 @@ def build_tile_plan(
         pair_counts[ti] = int(hit.sum())
     return TilePlan(out_rows, in_rows, local_idx, pair_counts,
                     n_row_splits=n_row_splits, dropped_pairs=0)
+
+
+def plan_dma_tables(plan: TilePlan) -> dict:
+    """Descriptor accounting (paper §V-A-3): the ordered side needs one
+    block entry per tile, the unordered side one entry per voxel. Returns
+    entry counts and transferred rows."""
+    in_valid = int((plan.in_rows >= 0).sum())
+    return {
+        "block_entries": plan.n_tiles,
+        "voxel_entries": in_valid,
+        "in_rows_transferred": in_valid,
+        "out_rows_transferred": int((plan.out_rows >= 0).sum()),
+    }
+
+
+def modeled_hbm_bytes(plan: TilePlan, c_in: int, n_out: int,
+                      itemsize: int = 4) -> dict:
+    """Modeled device-memory feature traffic of the execution paths for one
+    conv with ``c_in`` input and ``n_out`` output channels (the JAX
+    package's model, unchanged).
+
+    The fused path moves every table slot of every live tile (pad slots
+    included, dead tiles skipped). The pre-gathered paths move the valid
+    rows through the gather and the scatter and round-trip the whole
+    ``(T, dI, C)`` working-set stack and ``(T, dO, N)`` tile outputs
+    (padded, dead tiles included). The int32 tables count once for every
+    path.
+    """
+    d = plan_dma_tables(plan)
+    t, d_o, d_i = plan.n_tiles, plan.delta_o, plan.delta_i
+    k = plan.local_idx.shape[2]
+    meta = (t * d_i + t * d_o + t * d_o * k + t) * 4  # int32 tables
+    valid_read = d["in_rows_transferred"] * c_in * itemsize
+    valid_write = d["out_rows_transferred"] * n_out * itemsize
+    alive = int((plan.pair_counts > 0).sum())
+    gathered = t * d_i * c_in * itemsize       # full (T, dI, C) copy
+    tile_out = t * d_o * n_out * itemsize      # full (T, dO, N) stack
+    # gather write + kernel read of the copy, tile-out write + scatter read
+    roundtrip = meta + valid_read + valid_write + 2 * gathered + 2 * tile_out
+    return {
+        "alive_tiles": alive,
+        "fused": meta + alive * (d_i * c_in + d_o * n_out) * itemsize,
+        "pregathered": roundtrip,
+        "reference_gather": roundtrip,
+    }

@@ -1,6 +1,7 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,10 @@ def require_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {str(dev)!r} requested but no CUDA device is available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def host_array(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or array-like) as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -5,16 +5,37 @@
 the registry resolves the plan's backend name (``"auto"`` follows the
 planner's decision) to ``reference`` (gather + one product) or ``sspnna``
 (the fused CUDA kernel). ``apply_unet`` walks the SCN U-Net's levels off a
-``ScenePlan``, exactly as the JAX package does.
+``ScenePlan``, exactly as the JAX package does. ``use_kernel=False``
+(the JAX package's option) runs tiled convs through the pre-gathered plain
+branch instead of the kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.coir import COIR
 from repro_torch.core.sparse_conv import SparseConvParams, masked_batchnorm_relu
 from repro_torch.device import require_device
 from repro_torch.engine.backends import AUTO, DEFAULT_REGISTRY, BackendRegistry
-from repro_torch.engine.plan import ConvPlan, ScenePlan
+from repro_torch.engine.plan import REFERENCE_DISPATCH, ConvPlan, ScenePlan
+
+
+def available_backends(registry: BackendRegistry = DEFAULT_REGISTRY
+                       ) -> tuple[str, ...]:
+    """Backend names resolvable through ``registry``."""
+    return (AUTO,) + registry.names()
+
+
+def reference_plan(coir: COIR) -> ConvPlan:
+    """Wrap bare COIR metadata as a gather + product (reference) plan."""
+    return ConvPlan(coir, None, REFERENCE_DISPATCH)
+
+
+def resolve_backend(plan: ConvPlan, backend: str = AUTO,
+                    registry: BackendRegistry = DEFAULT_REGISTRY) -> str:
+    """The backend a call will actually run, after plan-driven dispatch
+    and fallback resolution through ``registry``."""
+    return registry.resolve(plan, backend)
 
 
 def sparse_conv(
@@ -24,10 +45,11 @@ def sparse_conv(
     *,
     backend: str = AUTO,
     registry: BackendRegistry = DEFAULT_REGISTRY,
+    use_kernel: bool = True,
 ) -> torch.Tensor:
     """Run one sparse conv according to its plan -> (V_out, N) features."""
     name = registry.resolve(plan, backend)
-    return registry.get(name).run(x, params, plan)
+    return registry.get(name).run(x, params, plan, use_kernel=use_kernel)
 
 
 def conv_block(x, mask, plan: ConvPlan, block, **conv_kw):
@@ -44,6 +66,7 @@ def apply_unet(
     *,
     backend: str = AUTO,
     registry: BackendRegistry = DEFAULT_REGISTRY,
+    use_kernel: bool = True,
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """U-Net forward off an uploaded ScenePlan -> (V, n_classes) logits.
@@ -59,7 +82,7 @@ def apply_unet(
     if model.head.w.device.type != dev.type:
         raise ValueError(f"model is on {model.head.w.device}, not {dev}")
     feats = torch.as_tensor(feats, dtype=model.head.w.dtype, device=dev)
-    kw = dict(backend=backend, registry=registry)
+    kw = dict(backend=backend, registry=registry, use_kernel=use_kernel)
     x = sparse_conv(feats, model.stem.params, plan.levels[0].sub, **kw)
     skips = []
     for lvl, p in zip(plan.levels, model.levels):

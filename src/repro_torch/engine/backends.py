@@ -5,7 +5,10 @@ SPADE records a backend *name* in each conv's ``Dispatch``; a
 backend's declared ``fallback`` when a plan lacks what it needs. The one
 fallback on the main path is the JAX planner's own: an ``sspnna`` decision
 whose plan carries no tile tables (the down and up convs, plane-split
-plans) runs on ``reference``.
+plans) runs on ``reference``. ``run`` takes the JAX package's
+``use_kernel`` keyword: ``sspnna`` with ``use_kernel=False`` runs the
+pre-gathered oracle branch of ``run_sspnna_conv`` (the caller's explicit
+choice, never a fallback); ``reference`` ignores it.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ class Backend:
         return all(getattr(plan, req, None) is not None
                    for req in self.plan_requirements)
 
-    def run(self, x, params: SparseConvParams, plan: ConvPlan):
+    def run(self, x, params: SparseConvParams, plan: ConvPlan, *,
+            use_kernel: bool = True):
         raise NotImplementedError(f"backend {self.name!r} has no run()")
 
     def __repr__(self):
@@ -91,23 +95,25 @@ class ReferenceBackend(Backend):
 
     name = REFERENCE
 
-    def run(self, x, params, plan):
+    def run(self, x, params, plan, *, use_kernel: bool = True):
+        del use_kernel  # no kernel on the gather + product path
         return reference_conv_cirf(x, plan.coir, params)
 
 
 class SSpNNABackend(Backend):
     """The fused gather-GEMM-scatter CUDA kernel driven by the plan's
-    ``TileArrays``; plans without tile tables fall back to reference."""
+    ``TileArrays`` (``use_kernel=False``: the pre-gathered plain branch);
+    plans without tile tables fall back to reference."""
 
     name = SSPNNA
     plan_requirements = ("tiles",)
     fallback = REFERENCE
 
-    def run(self, x, params, plan):
+    def run(self, x, params, plan, *, use_kernel: bool = True):
         raw = run_sspnna_conv(
             x, params.weight, plan.tiles.out_rows, plan.tiles.in_rows,
             plan.tiles.local_idx, n_out=plan.coir.mask.shape[0],
-            pair_counts=plan.tiles.pair_counts)
+            pair_counts=plan.tiles.pair_counts, use_kernel=use_kernel)
         out = raw.to(x.dtype) + params.bias.to(x.dtype)
         return out * plan.coir.mask.unsqueeze(-1).to(out.dtype)
 

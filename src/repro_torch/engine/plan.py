@@ -6,7 +6,8 @@ order, the SPADE-selected dataflow as a per-conv ``Dispatch``, and the tile
 tables the fused SSpNNA kernel reads. ``build_scene_plan_host`` builds it in
 numpy on the host (adaptive mode: SPADE explores each level on this scene's
 own sparsity attributes); ``upload_scene_plan`` copies its tables to the
-device as torch tensors.
+device as torch tensors. ``conv_plan_for_layer`` builds a tiled plan for
+one standalone conv site.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.core.host_meta import (
 )
 from repro_torch.core.soar import raster_order, soar_order
 from repro_torch.core.tiles import build_tile_plan, dma_tile_tables
-from repro_torch.device import require_device
+from repro_torch.device import host_array, require_device
 from repro_torch.sparse.tensor import SparseVoxelTensor
 
 REFERENCE = "reference"
@@ -232,6 +233,43 @@ def _build_scene_plan(t, cfg, *, plan_tiles, mem_budget, order,
         stats.append(info)
         levels.append(LevelPlan(coords, mask, sub, down, up))
     return ScenePlan(tuple(levels), stats)
+
+
+def conv_plan_for_layer(
+    coir: COIR,
+    ordering: np.ndarray,
+    delta_o: int,
+    delta_i: int,
+    *,
+    walk: str = "OS",
+    n_tiles: int | None = None,
+    device: str | torch.device = "cuda",
+) -> ConvPlan:
+    """Tiled ConvPlan for a standalone conv site, its COIR and tile tables
+    on ``device``. ``coir`` may hold numpy arrays or tensors on any device;
+    the tiles are planned on the host.
+
+    Plane-split plans (a ``delta_i`` below one row's working set, forcing
+    shared output rows) are rejected here, as in the JAX package: pick a
+    working-set budget that fits one row.
+    """
+    dev = require_device(device)
+    tp = build_tile_plan(host_array(coir.indices), host_array(ordering),
+                         delta_o, delta_i, n_tiles=n_tiles)
+    if tp.n_row_splits:
+        raise ValueError(
+            f"delta_i={delta_i} forces {tp.n_row_splits} plane-split tiles; "
+            "the fused kernel needs disjoint output rows — raise delta_i")
+    dma = dma_tile_tables(tp, int(coir.mask.shape[0]))
+
+    def put(x):
+        return torch.as_tensor(host_array(x), device=dev)
+
+    tiles = TileArrays(put(dma.out_rows), put(dma.in_rows), put(tp.local_idx),
+                       put(dma.pair_counts))
+    return ConvPlan(COIR(*(put(x) for x in coir)), tiles,
+                    Dispatch(SSPNNA, "CIRF", walk, delta_o, delta_i,
+                             tp.n_tiles))
 
 
 def _map_leaves(plan: ScenePlan, convert) -> ScenePlan:

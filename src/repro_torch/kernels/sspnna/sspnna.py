@@ -1,11 +1,21 @@
-"""Fused SSpNNA sparse conv: the CUDA kernel's wrapper and its plain version.
+"""SSpNNA kernels: the CUDA kernels' wrappers and their plain versions.
 
-Port of ``repro.kernels.sspnna.sspnna.sspnna_fused``. The kernel
-(``kernels/csrc/sspnna_fused.cu``) takes the global ``(V, C)`` feature
-array plus the tile tables and writes each tile's outputs straight to their
-global rows: no ``(T, dI, C)`` gathered copy and no scatter pass in device
-memory. ``sspnna_fused_plain`` computes the same function with plain
-PyTorch ops; the wrapper uses it only for tensors that lie on the CPU.
+Port of ``repro.kernels.sspnna.sspnna``:
+
+* ``sspnna_fused`` (``kernels/csrc/sspnna_fused.cu``) takes the global
+  ``(V, C)`` feature array plus the tile tables and writes each tile's
+  outputs straight to their global rows: no ``(T, dI, C)`` gathered copy
+  and no scatter pass in device memory.
+* ``sspnna_tiles`` (``kernels/csrc/sspnna_tiles.cu``) runs the same tile
+  product over a pre-gathered ``(T, dI, C)`` stack and returns the
+  ``(T, dO, N)`` tile outputs; ``ops.run_sspnna_conv(fused=False)``
+  scatters them back with an accumulate, which plane-split plans need.
+
+``sspnna_fused_plain`` and ``sspnna_tiles_plain`` compute the same
+functions with plain PyTorch ops; each wrapper uses its plain version only
+for tensors that lie on the CPU. Both kernels are forward-only. The TPU
+kernels' ``block_n``/``block_k`` (which only tile the N axis or split the
+plane sum into blocks) and ``interpret`` are not taken.
 """
 from __future__ import annotations
 
@@ -17,6 +27,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.sspnna.ref import sspnna_tile_ref
 
 KERNEL = "sspnna_fused"
+TILES_KERNEL = "sspnna_tiles"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _library() -> ctypes.CDLL:
@@ -116,3 +128,86 @@ def sspnna_fused(feats, weights, out_rows, in_rows, local_idx, pair_counts,
 
 
 sspnna_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Pre-gathered tile stack
+# ---------------------------------------------------------------------------
+
+# sspnna_tiles(feats, local_idx, weights, out, dtype, t, d_i, d_o, k, c, n,
+# stream) of csrc/sspnna_tiles.cu
+TILES_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+sspnna_tiles_plain = sspnna_tile_ref
+
+
+def _tiles_library() -> ctypes.CDLL:
+    lib = build.load(TILES_KERNEL)
+    lib.sspnna_tiles.argtypes = TILES_ARGTYPES
+    lib.sspnna_tiles.restype = ctypes.c_int
+    return lib
+
+
+def _check_tiles(feats, local_idx, weights):
+    if feats.dim() != 3 or local_idx.dim() != 3 or weights.dim() != 3:
+        raise ValueError(
+            f"expected feats (T, dI, C), local_idx (T, dO, K), weights "
+            f"(K, C, N); got {tuple(feats.shape)}, {tuple(local_idx.shape)}, "
+            f"{tuple(weights.shape)}")
+    t, d_o, k = local_idx.shape
+    c = feats.shape[2]
+    if feats.shape[0] != t or weights.shape[:2] != (k, c):
+        raise ValueError(
+            f"feats {tuple(feats.shape)}, local_idx {tuple(local_idx.shape)} "
+            f"and weights {tuple(weights.shape)} disagree on T, K or C")
+    if feats.dtype not in _DTYPE_CODE or weights.dtype != feats.dtype:
+        raise TypeError(f"sspnna_tiles takes float32 or bfloat16 feats and "
+                        f"weights of one dtype, got {feats.dtype} and "
+                        f"{weights.dtype}")
+    if local_idx.dtype != torch.int32:
+        raise TypeError(f"local_idx must be int32, got {local_idx.dtype}")
+    if local_idx.device != feats.device or weights.device != feats.device:
+        raise ValueError("feats, local_idx and weights must lie on one device")
+    if torch.is_grad_enabled() and (feats.requires_grad or weights.requires_grad):
+        raise RuntimeError(
+            "sspnna_tiles is forward-only (the kernel has no backward yet): "
+            "run under torch.no_grad(), or use backend='reference'")
+
+
+def sspnna_tiles(feats: torch.Tensor, local_idx: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """SSpNNA over a pre-gathered stack of tiles -> (T, dO, N) in
+    ``feats.dtype``: ``out[t, o] = sum_k feats[t, local_idx[t, o, k]] @
+    weights[k]`` with f32 sums, -1 holes adding nothing.
+
+    feats (T, dI, C) and weights (K, C, N) float32 or bfloat16 (one dtype);
+    local_idx (T, dO, K) int32 in [-1, dI). On CUDA tensors this launches
+    the kernel (and counts the launch in ``sspnna_tiles.launches``); on CPU
+    tensors it runs ``sspnna_tiles_plain``. Any other device raises.
+    """
+    _check_tiles(feats, local_idx, weights)
+    if feats.device.type == "cpu":
+        return sspnna_tiles_plain(feats, local_idx, weights)
+    if feats.device.type != "cuda":
+        raise ValueError(f"sspnna_tiles runs on cuda or cpu, not {feats.device}")
+    if not all(x.is_contiguous() for x in (feats, local_idx, weights)):
+        raise ValueError("sspnna_tiles needs contiguous inputs")
+    t, d_o, k = local_idx.shape
+    d_i, c = feats.shape[1:]
+    n = weights.shape[2]
+    out = torch.empty((t, d_o, n), dtype=feats.dtype, device=feats.device)
+    if out.numel() == 0:
+        return out
+    fn = _tiles_library().sspnna_tiles
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feats.data_ptr(), local_idx.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), _DTYPE_CODE[feats.dtype], t, d_i, d_o, k, c,
+                 n, stream)
+    if err:
+        raise RuntimeError(f"sspnna_tiles kernel launch failed: CUDA error {err}")
+    sspnna_tiles.launches += 1
+    return out
+
+
+sspnna_tiles.launches = 0

@@ -166,3 +166,35 @@ def test_miou_equal(scene):
     _, _, labels, mask, _ = scene
     pred = np.random.default_rng(2).integers(0, 5, labels.shape)
     assert miou(pred, labels, mask, 5) == jmiou(pred, labels, mask, 5)
+
+
+@pytest.mark.parametrize("d_o,d_i", [(8, 16), (32, 20), (4, 8)])
+def test_plane_split_tile_plans_equal(scene, d_o, d_i):
+    """Unbudgeted plans with delta_i < 27: rows whose partners overflow the
+    working set are split across plane groups, identically in both."""
+    _, _, _, mask, sub = scene
+    order = soar.soar_order(sub.indices, mask, 512).order
+    got = tiles.build_tile_plan(sub.indices, order, d_o, d_i)
+    want = jtiles.build_tile_plan(sub.indices, order, d_o, d_i)
+    assert got.n_row_splits > 0
+    for f in dataclasses.fields(got):
+        np.testing.assert_array_equal(getattr(got, f.name),
+                                      getattr(want, f.name))
+    _assert_tree_equal(tiles.dma_tile_tables(got, CAP),
+                       jtiles.dma_tile_tables(want, CAP))
+
+
+@pytest.mark.parametrize("d_o,d_i,budgeted", [
+    (32, 96, False), (8, 16, False), (32, 96, True)])
+def test_dma_accounting_and_modeled_bytes_equal(scene, d_o, d_i, budgeted):
+    _, _, _, mask, sub = scene
+    order = soar.soar_order(sub.indices, mask, 512).order
+    n_tiles = (tiles.max_tiles(int(mask.sum()), d_o, d_i, 27)
+               if budgeted else None)
+    got = tiles.build_tile_plan(sub.indices, order, d_o, d_i, n_tiles=n_tiles)
+    want = jtiles.build_tile_plan(sub.indices, order, d_o, d_i,
+                                  n_tiles=n_tiles)
+    assert tiles.plan_dma_tables(got) == jtiles.plan_dma_tables(want)
+    for c, n, itemsize in ((4, 16, 4), (32, 32, 4), (16, 16, 2)):
+        assert (tiles.modeled_hbm_bytes(got, c, n, itemsize)
+                == jtiles.modeled_hbm_bytes(want, c, n, itemsize))

@@ -21,11 +21,31 @@ from repro_torch.kernels.moe_gemm.ref import (
     moe_gemm_tol,
     random_moe_inputs,
 )
-from repro_torch.kernels.sspnna.ref import random_tile_tables
-from repro_torch.kernels.sspnna.sspnna import sspnna_fused, sspnna_fused_plain
+from conftest import make_shell_scene
+from repro_torch.core import host_meta
+from repro_torch.core.soar import soar_order
+from repro_torch.core.sparse_conv import (
+    SparseConvParams,
+    reference_conv_cirf,
+    submanifold_coir,
+)
+from repro_torch.core.tiles import build_tile_plan
+from repro_torch.kernels.sspnna.ops import run_sspnna_conv
+from repro_torch.kernels.sspnna.ref import (
+    TILE_STACK_CASES,
+    TILE_STACK_TOL,
+    random_tile_stack,
+    random_tile_tables,
+)
+from repro_torch.kernels.sspnna.sspnna import (
+    sspnna_fused,
+    sspnna_fused_plain,
+    sspnna_tiles,
+    sspnna_tiles_plain,
+)
 from repro_torch.models import transformer
 from repro_torch.models.scn import SCNUNet, UNetConfig
-from repro_torch.sparse.tensor import SparseVoxelTensor
+from repro_torch.sparse.tensor import SparseVoxelTensor, from_dense
 
 K = 27
 # f32 sums of up to K*C products, taken in another order than the other side
@@ -108,6 +128,78 @@ def test_apply_unet_on_card_matches_cpu(cuda_device):
     assert sspnna_fused.launches - launches == 4
     np.testing.assert_allclose(logits["cuda"], logits["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+def tile_case_id(case):
+    t, d_i, d_o, k, c, n, dt = case
+    return f"t{t}i{d_i}o{d_o}k{k}c{c}n{n}-{str(dt).removeprefix('torch.')}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "feats_off_16B"])
+@pytest.mark.parametrize("case", TILE_STACK_CASES, ids=tile_case_id)
+def test_tiles_kernel_matches_plain(cuda_device, case, aligned):
+    """f32 and bf16, K 27 and 8, ragged C and N, all-hole tiles (tile 0),
+    and a feature base off the kernel's vector alignment."""
+    t, d_i, d_o, k, c, n, dt = case
+    feats, idx, w = (x.to(cuda_device) for x in random_tile_stack(
+        np.random.default_rng(t * d_i + c), t=t, d_i=d_i, d_o=d_o, k=k, c=c,
+        n=n, dtype=dt))
+    if not aligned:  # a contiguous view one element into its storage
+        flat = torch.empty(feats.numel() + 1, dtype=dt, device=cuda_device)
+        flat[1:] = feats.reshape(-1)
+        feats = flat[1:].view(t, d_i, c)
+    launches = sspnna_tiles.launches
+    got = sspnna_tiles(feats, idx, w)
+    torch.cuda.synchronize()
+    assert sspnna_tiles.launches == launches + 1
+    assert got.dtype == dt and not got[0].any()
+    want = sspnna_tiles_plain(feats, idx, w)
+    tol = TILE_STACK_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_tiles_kernel_rejects_non_contiguous_input(cuda_device):
+    feats, idx, w = (x.to(cuda_device) for x in random_tile_stack(
+        np.random.default_rng(0), t=2, d_i=16, d_o=8, k=27, c=8, n=16))
+    wide = torch.cat([feats, feats], dim=2)[:, :, :8]  # strided view
+    assert not wide.is_contiguous()
+    launches = sspnna_tiles.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        sspnna_tiles(wide, idx, w)
+    assert sspnna_tiles.launches == launches
+
+
+@pytest.mark.cuda
+def test_plane_split_conv_through_kernel_matches_reference(cuda_device):
+    """A shell scene's COIR built on the card (equal to the host twin), an
+    unbudgeted plan with delta_i = 16 < 27 that splits rows across plane
+    groups, and the accumulating pre-gathered conv through the kernel
+    against the reference product (rows masked, no bias)."""
+    dense = make_shell_scene(np.random.default_rng(0), 18, 8)
+    t = from_dense(dense, device=cuda_device)
+    coir = submanifold_coir(t, 18)
+    idx, mask = coir.indices.cpu().numpy(), t.mask.cpu().numpy()
+    coords = t.coords.cpu().numpy()
+    np.testing.assert_array_equal(idx, host_meta.build_cirf_np(
+        coords, mask, coords, mask, host_meta.kernel_offsets(3), 18).indices)
+    tp = build_tile_plan(idx, soar_order(idx, mask, 64).order, 8, 16)
+    assert tp.n_row_splits > 0
+    w = (torch.randn((K, 8, 16), generator=torch.Generator().manual_seed(0))
+         * 0.1).to(cuda_device)
+    tables = [torch.from_numpy(x).to(cuda_device)
+              for x in (tp.out_rows, tp.in_rows, tp.local_idx)]
+    launches = sspnna_tiles.launches
+    got = run_sspnna_conv(t.feats, w, *tables, n_out=t.capacity, fused=False)
+    torch.cuda.synchronize()
+    assert sspnna_tiles.launches == launches + 1
+    ref = reference_conv_cirf(t.feats, coir, SparseConvParams(
+        w, torch.zeros(16, device=cuda_device)))
+    np.testing.assert_allclose(got.cpu().numpy()[mask],
+                               ref.cpu().numpy()[mask], rtol=1e-4, atol=1e-4)
 
 
 def flash_case_id(case):

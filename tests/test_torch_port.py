@@ -20,7 +20,7 @@ from repro.models.scn import init_unet
 from repro.sparse.tensor import SparseVoxelTensor as JSparseVoxelTensor
 from repro_torch import engine
 from repro_torch.data.scenes import N_CLASSES, make_scene
-from repro_torch.kernels.sspnna.sspnna import sspnna_fused
+from repro_torch.kernels.sspnna.sspnna import sspnna_fused, sspnna_tiles
 from repro_torch.models.scn import SCNUNet, UNetConfig, params_from_jax
 from repro_torch.sparse.tensor import SparseVoxelTensor
 
@@ -107,6 +107,27 @@ def test_apply_unet_matches_jax(plans, backend):
     assert got.shape == (CAP, N_CLASSES)
     # f32 with BatchNorm after every conv, which amplifies reordered sums
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_apply_unet_without_kernel_matches_jax(plans):
+    """``use_kernel=False`` runs every tiled conv through the pre-gathered
+    plain branch in both packages; the logits agree with JAX's and with the
+    port's kernel path, and no kernel wrapper counts a launch."""
+    feats, mask, ours, theirs = plans
+    tree = jax.tree.map(np.asarray,
+                        init_unet(jax.random.PRNGKey(0), JUNetConfig(**CFG)))
+    want = np.asarray(jengine.apply_unet(
+        tree, feats, jengine.upload_scene_plan(theirs), use_kernel=False))
+    model = params_from_jax(tree, UNetConfig(**CFG), device="cpu")
+    plan = engine.upload_scene_plan(ours, device="cpu")
+    launches = sspnna_fused.launches, sspnna_tiles.launches
+    with torch.no_grad():
+        got = engine.apply_unet(model, feats, plan, use_kernel=False,
+                                device="cpu")
+        auto = engine.apply_unet(model, feats, plan, device="cpu")
+    assert (sspnna_fused.launches, sspnna_tiles.launches) == launches
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), auto.numpy(), rtol=1e-4, atol=1e-4)
 
 
 def test_registry_falls_back_only_without_tiles(plans):
