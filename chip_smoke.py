@@ -5,7 +5,9 @@
 
 1. Prints the card's name and power limit, turns TF32 off, and builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
-   process per source, all at once.
+   process per source, all at once; prints the registers and spills
+   ``ptxas -v`` reports for the bf16 flash kernels (the tensor-core
+   ``wgmma`` design) and fails if any of them spills.
 2. Holds the fused SSpNNA kernel against its plain PyTorch version on random
    tile tables (holes, dead tiles, pad slots, C=4, N=48, C and N not
    multiples of 4).
@@ -38,7 +40,8 @@
 7. Holds the flash attention kernel against its plain version on random
    q, k, v (``kernels/flash/ref.FLASH_CASES``: causal and not, sq < skv,
    windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2, ragged
-   lengths).
+   lengths, and the bf16 kernel's edges: many tiles at D=256, Sq=129, a
+   window shorter than a tile, sq > skv, D=32).
 8. Drives the LM serving path: Gemma-2 2B at its published widths (26
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
    4096, softcaps 50 and 30), bf16, random weights drawn on the card from
@@ -73,7 +76,8 @@
    the plain expert products, for which no f32 noise floor fits the card.
 13. Times the kernel at the path's three launch shapes beside its plain
    version, ``torch.bmm`` (a yardstick the port never calls) and its bound;
-   flash at the path's D=128 shape beside SDPA; a wave's prefill and decode.
+   holds flash at layer 0's inputs (D=128) against its plain version and
+   times it beside SDPA; times a wave's prefill and decode.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
@@ -85,6 +89,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1027,6 +1032,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         flash_attention,
         flash_attention_plain,
     )
+    from repro_torch.kernels.flash.ref import FLASH_TOL
     from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
     from repro_torch.kernels.moe_gemm.ref import (
         MOE_GEMM_CASES,
@@ -1369,6 +1375,12 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         del logits, cache
 
         q, k, v, kw = flash_in[0]
+        f_abs, f_rel = max_err(flash_attention(q, k, v, **kw).float(),
+                               flash_attention_plain(q, k, v, **kw).float())
+        print(f"flash at layer 0 of a wave vs its plain version: max abs "
+              f"{f_abs:.3g} rel {f_rel:.3g} (tol {FLASH_TOL[q.dtype]})")
+        check(f_rel <= FLASH_TOL[q.dtype], "flash at layer 0 of a Moonshot "
+              "wave disagrees with its plain version")
         f_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3)
         f_pms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1447,7 +1459,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         "decode_step_bound_ms": step_bound,
     }
     flash = {"moe_ms": f_ms, "moe_plain_ms": f_pms, "moe_library_ms": f_lib,
-             "moe_bound_ms": f_bound}
+             "moe_bound_ms": f_bound, "moe_max_abs_err": f_abs}
     return entry, flash
 
 
@@ -1475,6 +1487,17 @@ def main() -> int:
     with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
         list(pool.map(build.build, kernels))
     print(f"build: {', '.join(kernels)} for sm_90a")
+    ptxas = {int(re.search(r"ILi(\d+)E", name).group(1)): regs_spills
+             for name, regs_spills in build.ptxas_report(
+                 build.ptxas_log(flash.KERNEL).read_text()).items()
+             if "flash_fwd_bf16" in name}
+    print("flash bf16 (wgmma) kernels, ptxas -v: " + "; ".join(
+        f"D={d}: {r} registers, {sp} bytes spilled"
+        for d, (r, sp) in sorted(ptxas.items())))
+    check(sorted(ptxas) == list(flash.HEAD_DIMS), "a bf16 flash kernel is "
+          "missing from the build")
+    check(all(sp == 0 for _, sp in ptxas.values()),
+          "a bf16 flash kernel spills registers")
 
     fused_entry, seed0 = scn_path(dev, phase)
     results = [fused_entry]
@@ -1483,6 +1506,9 @@ def main() -> int:
     del seed0
     torch.cuda.empty_cache()
     results.append(lm_path(dev, phase))
+    results[1]["bf16_ptxas"] = {
+        f"D={d}": {"registers": r, "spill_bytes": sp}
+        for d, (r, sp) in sorted(ptxas.items())}
     # the Gemma engine's stage callbacks hold it (and its weights) in a
     # cycle: collect it before Moonshot's 55 GB of weights need the room
     gc.collect()

@@ -5,7 +5,9 @@ Each source exposes a plain C interface. It is compiled with ``nvcc`` for
 sources, and loaded with ``ctypes``. Libraries go to ``build/repro_torch/``
 beside the package's ``src/`` directory (never the working directory) and
 are keyed by a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is reused.
+rebuilt and an unchanged one is reused. The compiler's output (``ptxas
+-v``: registers, shared memory and spills of each kernel) is kept beside
+the library as ``ptxas_log``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -20,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -41,6 +44,27 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def ptxas_log(name: str) -> Path:
+    """The compiler's output of the build of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log")
+
+
+def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
+    """``{kernel: (registers, spill bytes stored)}`` from ``ptxas -v``
+    output, kernels by their mangled names."""
+    report: dict[str, list[int]] = {}
+    name = None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            report[name] = [0, 0]
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report[name][0] = int(m.group(1))
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            report[name][1] = int(m.group(1))
+    return {k: (r, sp) for k, (r, sp) in report.items()}
+
+
 def build(name: str) -> Path:
     """The library of ``csrc/<name>.cu``, compiled first if it is missing;
     raises with the compiler's output if the build fails."""
@@ -56,6 +80,7 @@ def build(name: str) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit "
                            f"{proc.returncode}):\n{proc.stdout}")
+    ptxas_log(name).write_text(proc.stdout)
     os.replace(tmp, path)  # atomic: readers never see a partial file
     return path
 

@@ -3,7 +3,9 @@
 Port of ``repro.kernels.flash.flash.flash_attention``. The kernel
 (``kernels/csrc/flash_fwd.cu``) takes the model layout directly, q
 ``(B, Sq, Hq, D)`` and k/v ``(B, Skv, Hkv, D)``, and folds GQA by indexing
-kv head ``h // (Hq // Hkv)``, so nothing is repeated in device memory. It
+kv head ``h // (Hq // Hkv)``, so nothing is repeated in device memory.
+bf16 runs on the tensor cores (``wgmma``, K/V tiles fed by ``cp.async``),
+f32 on the CUDA cores (TF32 would keep ~3 digits). It
 keeps the TPU kernel's semantics: f32 scores scaled by ``D**-0.5``, the
 softcap before the mask, q right-aligned on the kv sequence, causal and
 window masks at ``-1e30``, an f32 online max and sum, ``p`` rounded to v's

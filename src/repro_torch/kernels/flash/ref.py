@@ -11,8 +11,12 @@ NEG_INF = -1e30
 # (b, sq, skv, hq, hkv, d, causal, window, softcap, dtype). Causal and not,
 # sq < skv, windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2,
 # lengths that are not multiples of the kernel's 64-row tiles, and sq > skv
-# (rows before the first key see nothing and give 0); the last is the MoE
+# (rows before the first key see nothing and give 0); the ninth is the MoE
 # LM's prefill (bf16, causal, D=128, GQA group 1, no softcap, no window).
+# The rest are the edges of the bf16 tensor-core kernel: D=256 over many
+# tiles with a softcap, a ragged Sq=129 (one row past a 128-row block), a
+# window shorter than a tile with GQA group 2, sq > skv, and D=32 (its
+# 64-byte swizzle).
 FLASH_CASES = [
     (2, 200, 200, 4, 4, 64, True, None, None, torch.float32),
     (1, 130, 333, 4, 2, 128, True, None, 50.0, torch.float32),
@@ -23,6 +27,11 @@ FLASH_CASES = [
     (1, 100, 260, 2, 2, 128, False, 50, None, torch.bfloat16),
     (1, 80, 40, 2, 2, 64, True, None, None, torch.float32),
     (2, 200, 200, 4, 4, 128, True, None, None, torch.bfloat16),
+    (1, 1000, 1000, 4, 2, 256, True, None, 50.0, torch.bfloat16),
+    (2, 129, 129, 2, 2, 128, True, None, None, torch.bfloat16),
+    (1, 200, 200, 4, 2, 64, True, 20, None, torch.bfloat16),
+    (1, 150, 100, 2, 1, 128, True, None, None, torch.bfloat16),
+    (2, 100, 100, 2, 1, 32, True, None, 30.0, torch.bfloat16),
 ]
 # kernel vs plain version, max |got - want| / max(|want|, 1): f32 sums of D
 # products and of a row's p*v terms in another order than the plain

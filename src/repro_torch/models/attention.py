@@ -108,7 +108,10 @@ def decode_attention(
     qg = q.reshape(b, 1, hkv, g, d)
     # f32 products of the cache's dtype, as the JAX einsum's f32 result
     s = torch.einsum("bhgd,bkhd->bhgk", qg[:, 0].float(), cache_k.float())
-    s = s / torch.tensor(float(d), device=s.device).sqrt()
+    # sqrt(d) in f32 on s's device, filled there (no host copy): a
+    # Python-float divisor would make CUDA multiply by its reciprocal,
+    # which is not bit-equal to this division at D = 128
+    s = s / torch.full((), float(d), device=s.device).sqrt()
     s = _softcap(s, logit_cap)
     slots = torch.arange(sbuf, device=q.device)
     # ring: slot holds position t - ((t - slot) mod buf); valid if >= 0

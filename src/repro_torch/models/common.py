@@ -6,6 +6,8 @@ RoPE rotates split halves in f32, as the JAX package does.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,11 +31,25 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@functools.cache
+def rope_table(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    """``rope_frequencies(head_dim, theta)`` as f32 on ``device``, made at
+    first use and kept under every input of its value, so a layer copies
+    nothing from the host. To a card it is copied from pinned memory
+    without blocking, so even the first call does not wait on the stream.
+    ``rope_table.cache_clear()`` empties the table."""
+    freqs = torch.from_numpy(rope_frequencies(head_dim, theta))
+    if device.type == "cuda":
+        freqs = freqs.pin_memory()
+    return freqs.to(device, non_blocking=True)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     d = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)
+    freqs = rope_table(d, theta, x.device)
     angles = positions[..., None].float() * freqs      # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]               # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]

@@ -222,8 +222,9 @@ def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
 def _embed(params, cfg: ModelConfig, tokens):
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:  # sqrt(d) in f32, cast to the working dtype
-        scale = np.sqrt(np.float32(cfg.d_model))
-        x = x * torch.tensor(scale, device=x.device).to(x.dtype)
+        # a 0-dim CPU tensor: read on the host at launch, no device copy
+        scale = torch.tensor(np.sqrt(np.float32(cfg.d_model))).to(x.dtype)
+        x = x * scale
     return x
 
 

@@ -5,6 +5,8 @@ Needs no JAX, so it runs on a machine with a card and without the JAX
 package: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Without a card every test here skips.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,7 @@ import torch
 from repro_torch import engine
 from repro_torch.configs import get_config
 from repro_torch.data.scenes import N_CLASSES, make_scene
+from repro_torch.kernels.flash import flash
 from repro_torch.kernels.flash.flash import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash.ref import FLASH_CASES, FLASH_TOL, random_qkv
 from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
@@ -43,7 +46,7 @@ from repro_torch.kernels.sspnna.sspnna import (
     sspnna_tiles,
     sspnna_tiles_plain,
 )
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 from repro_torch.models.scn import SCNUNet, UNetConfig
 from repro_torch.sparse.tensor import SparseVoxelTensor, from_dense
 
@@ -71,10 +74,22 @@ CARD_SHAPES = [
 
 @pytest.fixture
 def cuda_device():
+    """The card, with the flags these tests rely on set for the test and
+    restored after it, so no test sees what an earlier one left: f32
+    matmuls and convolutions in full f32 (TF32 keeps ~3 digits, and the
+    checks hold 1e-4 to 1e-5), and no sync debug mode."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (matmul.allow_tf32, cudnn.allow_tf32,
+             torch.cuda.get_sync_debug_mode())
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield torch.device("cuda")
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved[:2]
+        torch.cuda.set_sync_debug_mode(saved[2])
 
 
 @pytest.mark.cuda
@@ -227,6 +242,29 @@ def test_flash_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
+    """No fallback hides the kernel: a bf16 call at an unsupported head dim
+    or on a strided view raises in the wrapper, and the C entry refuses a
+    head dim it has no kernel for, which the wrapper turns into an
+    error."""
+    q, k, v = (x.to(cuda_device) for x in random_qkv(
+        np.random.default_rng(0), b=1, sq=64, skv=64, hq=2, hkv=1, d=64,
+        dtype=torch.bfloat16))
+    launches = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*(x[..., :48].contiguous() for x in (q, k, v)))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q[:, ::2], k[:, ::2], v[:, ::2])
+    out = torch.empty_like(q)
+    err = flash._library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 1, 64,
+        64, 2, 1, 48, 1, 0, 0.0, 48 ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    assert flash_attention.launches == launches
+
+
+@pytest.mark.cuda
 def test_prefill_launches_flash_once_per_layer(cuda_device):
     """A reduced Gemma-2 prefill (window 32 < prompt 80, so the local
     layers mask the window) on the card: one kernel launch per layer, and
@@ -249,6 +287,54 @@ def test_prefill_launches_flash_once_per_layer(cuda_device):
     for got, want in zip(out["cuda"], out["cpu"], strict=True):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "moonshot-v1-16b-a3b"])
+def test_lm_prefill_and_decode_step_wait_for_no_host_copy(cuda_device, arch):
+    """A reduced prefill and one decode step on the card enqueue without a
+    host sync: under sync debug mode "error" a blocking copy or a
+    synchronize raises. The rope table starts empty, so its first fill is
+    inside too."""
+    cfg = get_config(arch).reduced()
+    params = transformer.init_lm(cfg, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda_device)
+    common.rope_table.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            logits, cache, _ = transformer.forward(
+                params, cfg, toks, mode="prefill", cache_pad=4)
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            logits, cache = transformer.decode_step(params, cfg, tok[:, None],
+                                                    cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cache["pos"] == 41 and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_f32_prefill_does_not_depend_on_what_ran_before(cuda_device):
+    """A reduced Gemma-2 f32 prefill on the card gives the same logits, bit
+    for bit, after a bf16 one as on a cleared rope table: no constant
+    cached by one forward leaks into another."""
+    cfg = get_config("gemma2-2b").reduced()
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 80))).to(cuda_device)
+    params = transformer.init_lm(cfg, device=cuda_device)
+    params16 = transformer.init_lm(cfg16, device=cuda_device)
+    with torch.inference_mode():
+        common.rope_table.cache_clear()
+        want = transformer.forward(params, cfg, toks)[0]
+        common.rope_table.cache_clear()
+        transformer.forward(params16, cfg16, toks)
+        got = transformer.forward(params, cfg, toks)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def moe_case_id(case):

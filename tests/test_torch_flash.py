@@ -171,3 +171,20 @@ def test_argtypes_match_the_c_signature():
     want = [kinds[re.sub(r"\s+", "", p.rsplit(None, 1)[0]).removeprefix(
         "const")] for p in params]
     assert want == ARGTYPES
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """What chip_smoke.py gates on: each kernel's registers and spill
+    bytes, from ``ptxas -v`` output as nvcc prints it for sm_90a."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z2tcILi256EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z2tcILi256EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z3f32ILi32EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z3f32ILi32EEvPKf
+    24 bytes stack frame, 28 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 24 bytes cumulative stack size
+"""
+    assert build.ptxas_report(log) == {"_Z2tcILi256EEvPKf": (254, 0),
+                                       "_Z3f32ILi32EEvPKf": (64, 28)}

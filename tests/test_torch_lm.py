@@ -273,3 +273,36 @@ def test_entry_points_raise_without_a_card():
         transformer.init_decode_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.params_from_jax({}, cfg)
+
+
+def test_rope_table_holds_rope_frequencies():
+    """The table is ``rope_frequencies`` as it was computed per call, kept
+    under (head_dim, theta, device)."""
+    common.rope_table.cache_clear()
+    cpu = torch.device("cpu")
+    for d, theta in ((64, 1e4), (128, 5e4), (64, 5e4)):
+        got = common.rope_table(d, theta, cpu)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, torch.from_numpy(
+            common.rope_frequencies(d, theta)))
+        assert common.rope_table(d, theta, cpu) is got
+    assert common.rope_table.cache_info().currsize == 3
+
+
+def test_f32_forward_does_not_depend_on_an_earlier_bf16_one():
+    """In one process, a bf16 reduced-Gemma forward followed by an f32 one
+    gives the same f32 logits, bit for bit, as the f32 forward on a
+    cleared rope table."""
+    cfg = get_config("gemma2-2b").reduced()
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 40)))
+    params = transformer.init_lm(cfg, device="cpu")
+    params16 = transformer.init_lm(cfg16, device="cpu")
+    with torch.inference_mode():
+        common.rope_table.cache_clear()
+        want = transformer.forward(params, cfg, toks)[0]
+        common.rope_table.cache_clear()
+        transformer.forward(params16, cfg16, toks)
+        got = transformer.forward(params, cfg, toks)[0]
+    assert torch.equal(got, want)
