@@ -7,7 +7,8 @@
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
    process per source, all at once; prints the registers and spills
    ``ptxas -v`` reports for the bf16 flash kernels (the tensor-core
-   ``wgmma`` design) and fails if any of them spills.
+   ``wgmma`` design) and for every instantiation of the SSpNNA tile kernel
+   (``mma.sync``), and fails if any of them spills.
 2. Holds the fused SSpNNA kernel against its plain PyTorch version on random
    tile tables (holes, dead tiles, pad slots, C=4, N=48, C and N not
    multiples of 4).
@@ -19,8 +20,17 @@
    convs the planner sent to ``sspnna``, and the logits must match the same
    plan run with ``backend="reference"``.
 4. Replays every SSpNNA launch of seed 0's forward against the plain
-   version at its real inputs, and times kernel, plain version and the
-   end-to-end forward with CUDA events / synchronized host clocks.
+   version at its real inputs, and times kernel and plain version as one
+   call through the wrapper (``time_ms``: CUDA events, host included, as
+   every earlier run reported them) and on the device (``device_ms``: CUDA
+   events around calls queued behind a spinning kernel), and the
+   end-to-end forward (synchronized host clock); each launch line gives
+   its blocks and the TFLOP/s of its useful pairs, and its bound at the
+   fp32 peak and at 3xTF32 on the tensor cores. Then splits the kernel's
+   device time over those launches with three timing builds of its tile
+   body (``SSPNNA_BREAKDOWN`` in ``sspnna_tile.cuh``): without the plane
+   feed's copies, without the products, and with one TF32 product of the
+   three.
 5. Holds the pre-gathered tile-stack kernel (``sspnna_tiles``) against its
    plain version on random stacks (``kernels/sspnna/ref.TILE_STACK_CASES``:
    f32 and bf16, K 27 and 8, ragged C and N, all-hole tiles).
@@ -86,6 +96,7 @@ the kernels' numbers; the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -106,8 +117,18 @@ import torch  # noqa: E402
 # published peaks of one H100 SXM (NVIDIA data sheet; the card's power limit
 # is printed beside every measurement)
 PEAK_FP32_FLOPS = 67e12
+# the SSpNNA kernels' f32 product is 3xTF32 on the tensor cores: three TF32
+# products (495 TFLOP/s dense) for each f32 one
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# cycles a second of torch.cuda._sleep's spin, at most the H100's 1.98 GHz
+# boost clock (a slower clock only spins longer)
+SPIN_HZ = 1.98e9
+# the fused kernel's timing builds (csrc/sspnna_tile.cuh, SSPNNA_BREAKDOWN)
+BREAKDOWN_BUILDS = {"no_feed": ("SSPNNA_BREAKDOWN=1",),
+                    "no_products": ("SSPNNA_BREAKDOWN=2",),
+                    "one_tf32": ("SSPNNA_BREAKDOWN=3",)}
 # f32 sums of up to K*C = 27*96 products, taken in another order than the
 # plain version's matmul
 KERNEL_TOL = 1e-4
@@ -179,8 +200,9 @@ def norm_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` launches (CUDA events,
-    after one warm-up call)."""
+    """Median time of one call of ``fn`` over ``reps`` calls: CUDA events
+    recorded just before and just after it, so a small kernel's time
+    includes its wrapper's host work (after one warm-up call)."""
     fn()
     times = []
     for _ in range(reps):
@@ -192,6 +214,30 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` (ms), without the host's time: the
+    stream is held by a spinning kernel (``torch.cuda._sleep``, twice as
+    long as the host takes to enqueue the calls) while ``reps`` calls are
+    enqueued behind it, so CUDA events around them see the device run them
+    back to back. ``time_ms`` brackets one call through its Python wrapper
+    and so adds the wrapper's host time to a small kernel's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_HZ * (2 * reps * host_s + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def host_ms(fn, reps: int) -> float:
@@ -207,12 +253,13 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def sspnna_bound(feats, weights, out_rows, in_rows, local_idx, counts, n_out):
+def sspnna_bound(feats, weights, out_rows, in_rows, local_idx, counts, n_out,
+                 peak=PEAK_FP32_FLOPS):
     """Least time (ms) the card could take for one launch's work, and what
-    bounds it: the FLOPs of the pairs this plan holds over the fp32 peak,
-    against the bytes the function must move (each referenced input row,
-    the weights and the tables read once, the output written once) over the
-    memory rate."""
+    bounds it: the FLOPs of the pairs this plan holds over the fp32 peak
+    (or ``peak``), against the bytes the function must move (each
+    referenced input row, the weights and the tables read once, the output
+    written once) over the memory rate."""
     c, n = feats.shape[1], weights.shape[2]
     live = counts > 0
     flops = 2.0 * float(counts.sum()) * c * n
@@ -220,8 +267,19 @@ def sspnna_bound(feats, weights, out_rows, in_rows, local_idx, counts, n_out):
     nbytes = 4.0 * (rows_in * c + weights.numel() + out_rows.numel()
                     + in_rows.numel() + local_idx.numel() + counts.numel()
                     + n_out * n)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def launch_shape(kernel: str, t, d_o, k, c, n) -> str:
+    """The SSpNNA kernel's launch at this shape, in words."""
+    from repro_torch.kernels.sspnna.sspnna import launch_geometry
+
+    g = launch_geometry(kernel, t, d_o, k, c, n)
+    return (f"{g['grid_x'] * g['grid_y']} blocks of {g['rows_per_block']} rows "
+            f"x {g['channels_per_block']} channels, {g['threads']} threads, "
+            f"{g['stages']} stages, {g['smem_bytes']} bytes of shared memory, "
+            f"{g['blocks_per_sm']} an SM")
 
 
 def leaves(tree):
@@ -405,7 +463,9 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             logits0 = engine.apply_unet(model, feats0, plan0, device=dev)
     finally:
         ops.sspnna_fused = fused
-    rows = []  # one per launch: level, kernel ms, plain ms, bound ms, bound by
+    # per launch: level, kernel ms (a call), plain ms (a call), bound ms,
+    # bound by, bound ms at 3xTF32, kernel and plain device ms
+    rows = []
     with torch.inference_mode():
         for i, (args, kw) in enumerate(calls):
             got, want = fused(*args, **kw), plain(*args, **kw)
@@ -414,26 +474,41 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             worst_abs = max(worst_abs, abs_err)
             ms = time_ms(lambda: fused(*args, **kw), 20)
             pms = time_ms(lambda: plain(*args, **kw), 5)
+            dev_ms = device_ms(lambda: fused(*args, **kw), 20)
+            plain_dev_ms = device_ms(lambda: plain(*args, **kw), 5)
             b_ms, b_by = sspnna_bound(*args, kw["n_out"])
+            b3_ms, b3_by = sspnna_bound(*args, kw["n_out"], PEAK_TF32X3_FLOPS)
             feats, weights, out_rows, in_rows, local_idx, counts = args
-            t, d_o, _ = local_idx.shape
+            t, d_o, k = local_idx.shape
+            c, n, pairs = feats.shape[1], weights.shape[2], int(counts.sum())
             level = next(li for li, lvl in enumerate(plan0.levels)
                          if lvl.sub.tiles is not None
                          and lvl.sub.tiles.local_idx is local_idx)
-            print(f"launch {i} L{level} C={feats.shape[1]} N={weights.shape[2]} "
-                  f"T={t} dO={d_o} dI={in_rows.shape[1]} "
-                  f"pairs={int(counts.sum())}: kernel {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max abs "
-                  f"{abs_err:.3g}")
-            rows.append((level, ms, pms, b_ms, b_by))
+            print(f"launch {i} L{level} C={c} N={n} T={t} dO={d_o} "
+                  f"dI={in_rows.shape[1]} pairs={pairs}: kernel {ms:.4f} ms "
+                  f"a call, {dev_ms:.4f} ms on the device "
+                  f"({launch_shape(sspnna.KERNEL, t, d_o, k, c, n)}, "
+                  f"{2e-9 * pairs * c * n / dev_ms:.2f} TFLOP/s of useful "
+                  f"pairs); plain {pms:.4f} ms a call, {plain_dev_ms:.4f} ms "
+                  f"on the device; bound {b_ms:.4f} ms ({b_by}; {b3_ms:.4f} "
+                  f"ms, {b3_by}, at 3xTF32), max abs {abs_err:.3g}")
+            rows.append((level, ms, pms, b_ms, b_by, b3_ms, dev_ms,
+                         plain_dev_ms))
     for level in sorted({r[0] for r in rows}):
         mine = [r for r in rows if r[0] == level]
         print(f"level {level}: {len(mine)} launches, kernel "
-              f"{sum(r[1] for r in mine):.4f} ms, plain "
-              f"{sum(r[2] for r in mine):.4f} ms, bound "
-              f"{sum(r[3] for r in mine):.4f} ms per forward")
+              f"{sum(r[1] for r in mine):.4f} ms in calls, "
+              f"{sum(r[6] for r in mine):.4f} ms on the device; plain "
+              f"{sum(r[2] for r in mine):.4f} ms in calls, "
+              f"{sum(r[7] for r in mine):.4f} ms on the device; bound "
+              f"{sum(r[3] for r in mine):.4f} ms ("
+              f"{sum(r[5] for r in mine):.4f} ms at 3xTF32) per forward")
     by_bytes = sum(r[3] for r in rows if r[4] == "bytes")
     by_ops = sum(r[3] for r in rows if r[4] == "operations")
+    with torch.inference_mode():
+        breakdown = fused_breakdown(calls)
+    print("sspnna_fused breakdown over seed 0's launches, device ms per "
+          "forward: " + ", ".join(f"{k} {v:.4f}" for k, v in breakdown.items()))
 
     with torch.inference_mode():
         fwd_auto = host_ms(lambda: engine.apply_unet(
@@ -450,12 +525,21 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         "replaces": "src/repro/kernels/sspnna/sspnna.py:151",
         "launches": total_launches,
         "max_abs_err": worst_abs,
-        # times and bound summed over the launches of one forward (seed 0)
+        # times and bound summed over the launches of one forward (seed 0);
+        # ms and plain_ms are calls through the wrapper, host included
+        # (time_ms), *device_ms the device alone (device_ms)
         "ms": sum(r[1] for r in rows),
         "plain_ms": sum(r[2] for r in rows),
         "bound_ms": by_bytes + by_ops,
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "library_ms": None,
+        "device_ms": sum(r[6] for r in rows),
+        "plain_device_ms": sum(r[7] for r in rows),
+        "library_device_ms": None,
+        # the same bound with the operations at 3xTF32 on the tensor cores
+        "bound_tf32x3_ms": sum(r[5] for r in rows),
+        # device ms of the timing builds (fused_breakdown), "full" the kernel
+        "breakdown_device_ms": breakdown,
     }
     seed0_state = {"cfg": cfg, "model": model, "feats": feats0,
                    "coords": requests[0][4].levels[0].coords,
@@ -464,9 +548,41 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     return entry, seed0_state
 
 
-def tiles_bound(feats, local_idx, weights):
+def fused_breakdown(calls) -> dict[str, float]:
+    """Device time (ms) of the recorded ``sspnna_fused`` calls, summed: the
+    kernel as the port builds it ("full") and each of ``BREAKDOWN_BUILDS``,
+    launched through their C entries on the same inputs. What the timing
+    builds write is wrong by design and not read; the wrapper's launch
+    count does not move."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sspnna import sspnna
+
+    totals = {}
+    for label, defines in {"full": (), **BREAKDOWN_BUILDS}.items():
+        fn = build.load(sspnna.KERNEL, defines).sspnna_fused_f32
+        fn.argtypes, fn.restype = sspnna.FUSED_ARGTYPES, ctypes.c_int
+        totals[label] = 0.0
+        for args, kw in calls:
+            feats, weights, _, in_rows, local_idx, _ = args
+            t, d_o, k = local_idx.shape
+            n, n_out = weights.shape[2], kw["n_out"]
+            out = torch.zeros((n_out + 1, n), device=feats.device)
+            ptrs = [x.data_ptr() for x in (*args, out)]
+            stream = torch.cuda.current_stream().cuda_stream
+            shape = (t, d_o, in_rows.shape[1], k, feats.shape[1], n, n_out)
+
+            def run():
+                check(fn(*ptrs, *shape, stream) == 0,
+                      f"sspnna_fused {label} build failed to launch")
+
+            totals[label] += device_ms(run, 20)
+    return totals
+
+
+def tiles_bound(feats, local_idx, weights, peak=PEAK_FP32_FLOPS):
     """Least time (ms) for one ``sspnna_tiles`` launch, and what bounds it:
-    2*C*N FLOPs per pair (non-hole index) over the fp32 peak, against the
+    2*C*N FLOPs per pair (non-hole index) over the fp32 peak (or
+    ``peak``), against the
     bytes the function must move over the memory rate: each (tile, row) of
     the (T, dI, C) stack that ``local_idx`` references, W and local_idx read
     once, the (T, dO, N) output written once. Padded slots and the rows of
@@ -482,7 +598,7 @@ def tiles_bound(feats, local_idx, weights):
     nbytes = float(feats.element_size() * (rows_in * c + weights.numel()
                                            + t * d_o * n)
                    + 4 * local_idx.numel())
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -643,7 +759,9 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
     # benchmark (fused, pre-gathered, plain): pre-gathered and plain
     # against fused; each launch against its plain version at its real
     # inputs; times, bound, yardstick
-    rows = []  # level, kernel, plain, conv, bound, by, matmul, fused, oracle
+    # per launch: level, kernel, plain, conv, bound, by, matmul, fused,
+    # oracle (calls), bound at 3xTF32, kernel, matmul and plain device ms
+    rows = []
     with torch.inference_mode():
         for i, ((args, kw), got) in enumerate(zip(calls, pg_out)):
             want = fused(*args, **kw)
@@ -662,6 +780,8 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
             worst_abs = max(worst_abs, k_abs)
             ms = time_ms(lambda: tiles(tf, idx, w), 20)
             pms = time_ms(lambda: plain(tf, idx, w), 5)
+            dev_ms = device_ms(lambda: tiles(tf, idx, w), 20)
+            plain_dev_ms = device_ms(lambda: plain(tf, idx, w), 5)
             conv_ms = time_ms(lambda: ops.run_sspnna_conv(
                 *args[:5], n_out=kw["n_out"], fused=False), 10)
             fused_ms = time_ms(lambda: fused(*args, **kw), 10)
@@ -674,28 +794,43 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
             g = torch.where((idx >= 0).reshape(t, d_o * k, 1), g, 0.0)
             g = g.reshape(t * d_o, k * c)
             mm_ms = time_ms(lambda: torch.matmul(g, w.reshape(k * c, n)), 20)
+            mm_dev_ms = device_ms(lambda: torch.matmul(g, w.reshape(k * c, n)),
+                                  20)
             del g
             b_ms, b_by = tiles_bound(tf, idx, w)
+            b3_ms = tiles_bound(tf, idx, w, PEAK_TF32X3_FLOPS)[0]
             li = level_of[i]
             hbm = modeled_hbm_bytes(levels[li][1], c, n)
+            pairs = int((idx >= 0).sum())
             print(f"conv {i} L{li} C={c} N={n} T={t} dO={d_o} dI={tf.shape[1]} "
-                  f"pairs={int((idx >= 0).sum())}: kernel {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), matmul of the "
-                  f"gathered block {mm_ms:.4f} ms; whole conv: fused "
+                  f"pairs={pairs}: kernel {ms:.4f} ms a call, {dev_ms:.4f} "
+                  f"ms on the device "
+                  f"({launch_shape(sspnna.TILES_KERNEL, t, d_o, k, c, n)}, "
+                  f"{2e-9 * pairs * c * n / dev_ms:.2f} TFLOP/s of useful "
+                  f"pairs); plain {pms:.4f} ms a call, {plain_dev_ms:.4f} ms "
+                  f"on the device; bound {b_ms:.4f} ms ({b_by}; {b3_ms:.4f} "
+                  f"ms at 3xTF32); matmul of the gathered block {mm_ms:.4f} "
+                  f"ms a call, {mm_dev_ms:.4f} ms on the device; whole conv "
+                  f"(calls): fused "
                   f"{fused_ms:.4f} ms, pre-gathered {conv_ms:.4f} ms, plain "
                   f"arm {oracle_ms:.4f} ms; pre-gathered vs fused max abs "
                   f"{abs_err:.3g}, kernel vs plain max abs {k_abs:.3g}; "
                   f"modeled bytes fused {hbm['fused']} pre-gathered "
                   f"{hbm['pregathered']}")
             rows.append((li, ms, pms, conv_ms, b_ms, b_by, mm_ms, fused_ms,
-                         oracle_ms))
+                         oracle_ms, b3_ms, dev_ms, mm_dev_ms, plain_dev_ms))
     for li in sorted({r[0] for r in rows}):
         mine = [r for r in rows if r[0] == li]
         print(f"level {li}: {len(mine)} launches, kernel "
-              f"{sum(r[1] for r in mine):.4f} ms, plain "
-              f"{sum(r[2] for r in mine):.4f} ms, bound "
-              f"{sum(r[4] for r in mine):.4f} ms, matmul "
-              f"{sum(r[6] for r in mine):.4f} ms; whole convs: fused "
+              f"{sum(r[1] for r in mine):.4f} ms in calls, "
+              f"{sum(r[10] for r in mine):.4f} ms on the device; plain "
+              f"{sum(r[2] for r in mine):.4f} ms in calls, "
+              f"{sum(r[12] for r in mine):.4f} ms on the device; bound "
+              f"{sum(r[4] for r in mine):.4f} ms ("
+              f"{sum(r[9] for r in mine):.4f} ms at 3xTF32), matmul "
+              f"{sum(r[6] for r in mine):.4f} ms in calls, "
+              f"{sum(r[11] for r in mine):.4f} ms on the device; whole convs "
+              f"(calls): fused "
               f"{sum(r[7] for r in mine):.4f} ms, pre-gathered "
               f"{sum(r[3] for r in mine):.4f} ms, plain arm "
               f"{sum(r[8] for r in mine):.4f} ms per forward")
@@ -744,14 +879,20 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
         "replaces": "src/repro/kernels/sspnna/sspnna.py:93",
         "launches": main_launches,
         "max_abs_err": worst_abs,
-        # summed over the launches of one forward's recorded convs (seed 0);
-        # library_ms is torch.matmul of the already-gathered (T*dO, K*C)
-        # block, a yardstick the port never calls
+        # summed over the launches of one forward's recorded convs (seed 0),
+        # calls through the wrapper, host included (time_ms), and
+        # *device_ms the device alone (device_ms); library_ms is
+        # torch.matmul of the already-gathered (T*dO, K*C) block, a
+        # yardstick the port never calls
         "ms": sum(r[1] for r in rows),
         "plain_ms": sum(r[2] for r in rows),
         "bound_ms": by_bytes + by_ops,
         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
         "library_ms": sum(r[6] for r in rows),
+        "device_ms": sum(r[10] for r in rows),
+        "plain_device_ms": sum(r[12] for r in rows),
+        "library_device_ms": sum(r[11] for r in rows),
+        "bound_tf32x3_ms": sum(r[9] for r in rows),
         # the three arms of the whole conv, summed the same way
         "conv_fused_ms": sum(r[7] for r in rows),
         "conv_pregathered_ms": sum(r[3] for r in rows),
@@ -1484,9 +1625,12 @@ def main() -> int:
     phase("build")
     kernels = (sspnna.KERNEL, sspnna.TILES_KERNEL, flash.KERNEL,
                moe_gemm.KERNEL)
-    with ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc per source
-        list(pool.map(build.build, kernels))
-    print(f"build: {', '.join(kernels)} for sm_90a")
+    builds = ([(name, ()) for name in kernels]
+              + [(sspnna.KERNEL, d) for d in BREAKDOWN_BUILDS.values()])
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build
+        list(pool.map(lambda b: build.build(*b), builds))
+    print(f"build: {', '.join(kernels)} for sm_90a, and {len(BREAKDOWN_BUILDS)} "
+          f"timing builds of {sspnna.KERNEL}")
     ptxas = {int(re.search(r"ILi(\d+)E", name).group(1)): regs_spills
              for name, regs_spills in build.ptxas_report(
                  build.ptxas_log(flash.KERNEL).read_text()).items()
@@ -1498,8 +1642,24 @@ def main() -> int:
           "missing from the build")
     check(all(sp == 0 for _, sp in ptxas.values()),
           "a bf16 flash kernel spills registers")
+    sspnna_ptxas = {}  # every instantiation of the shared SSpNNA tile kernel
+    for kernel in (sspnna.KERNEL, sspnna.TILES_KERNEL):
+        for name, regs_spills in build.ptxas_report(
+                build.ptxas_log(kernel).read_text()).items():
+            if m := re.search(r"tile_kernelI(f|13__nv_bfloat16)Li(\d)E", name):
+                dt = "f32" if m.group(1) == "f" else "bf16"
+                sspnna_ptxas[f"{kernel} {dt} NT={m.group(2)}"] = regs_spills
+    print("sspnna (mma.sync) kernels, ptxas -v: " + "; ".join(
+        f"{k}: {r} registers, {sp} bytes spilled"
+        for k, (r, sp) in sorted(sspnna_ptxas.items())))
+    check(len(sspnna_ptxas) == 12, "an SSpNNA kernel instantiation is missing "
+          "from the build (4 fused f32, 4 tile-stack f32, 4 bf16)")
+    check(all(sp == 0 for _, sp in sspnna_ptxas.values()),
+          "an SSpNNA kernel spills registers")
 
     fused_entry, seed0 = scn_path(dev, phase)
+    fused_entry["ptxas"] = {k: {"registers": r, "spill_bytes": sp}
+                            for k, (r, sp) in sorted(sspnna_ptxas.items())}
     results = [fused_entry]
     with torch.inference_mode():  # the model's parameters require grad
         tiles_entry = pregathered_path(dev, phase, seed0)

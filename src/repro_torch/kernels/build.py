@@ -4,10 +4,13 @@ Each source exposes a plain C interface. It is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library, at first use, from the repository's own
 sources, and loaded with ``ctypes``. Libraries go to ``build/repro_torch/``
 beside the package's ``src/`` directory (never the working directory) and
-are keyed by a hash of the source and the flags, so an edited kernel is
-rebuilt and an unchanged one is reused. The compiler's output (``ptxas
--v``: registers, shared memory and spills of each kernel) is kept beside
-the library as ``ptxas_log``.
+are keyed by a hash of the source, of every ``csrc/`` header it reaches
+through ``#include "..."`` and of the flags, so an edited kernel or header
+is rebuilt and an unchanged one is reused. ``defines`` (``NAME=VALUE``,
+passed as ``-D``) build a variant of a source beside its library, under a
+key of its own; the port's entry points load the plain builds only. The
+compiler's output (``ptxas -v``: registers, shared memory and spills of
+each kernel) is kept beside the library as ``ptxas_log``.
 """
 from __future__ import annotations
 
@@ -37,16 +40,43 @@ def _nvcc() -> str:
                        f"the kernels in {CSRC}")
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 
-def ptxas_log(name: str) -> Path:
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` that it reaches
+    through ``#include "..."`` lines, directly or through other headers."""
+    root = CSRC.resolve()
+    found, todo = [], [root / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and dep.is_relative_to(root):
+                todo.append(dep)
+    return found
+
+
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` (with ``defines``)
+    lives."""
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
+    for path in sources(name):
+        digest.update(str(path.relative_to(CSRC.resolve())).encode())
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def ptxas_log(name: str, defines: tuple[str, ...] = ()) -> Path:
     """The compiler's output of the build of ``csrc/<name>.cu``."""
-    return library_path(name).with_suffix(".log")
+    return library_path(name, defines).with_suffix(".log")
 
 
 def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
@@ -65,27 +95,27 @@ def ptxas_report(text: str) -> dict[str, tuple[int, int]]:
     return {k: (r, sp) for k, (r, sp) in report.items()}
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     """The library of ``csrc/<name>.cu``, compiled first if it is missing;
     raises with the compiler's output if the build fails."""
-    path = library_path(name)
+    path = library_path(name, defines)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu (exit "
                            f"{proc.returncode}):\n{proc.stdout}")
-    ptxas_log(name).write_text(proc.stdout)
+    ptxas_log(name, defines).write_text(proc.stdout)
     os.replace(tmp, path)  # atomic: readers never see a partial file
     return path
 
 
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build(name, defines)))

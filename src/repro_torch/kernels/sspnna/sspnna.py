@@ -11,6 +11,10 @@ Port of ``repro.kernels.sspnna.sspnna``:
   ``(T, dO, N)`` tile outputs; ``ops.run_sspnna_conv(fused=False)``
   scatters them back with an accumulate, which plane-split plans need.
 
+Both kernels take their tile body from ``kernels/csrc/sspnna_tile.cuh``
+(one launch geometry, ``cp.async`` feed and ``mma.sync`` product), so a
+pre-gathered conv equals the fused one bit for bit on the card.
+
 ``sspnna_fused_plain`` and ``sspnna_tiles_plain`` compute the same
 functions with plain PyTorch ops; each wrapper uses its plain version only
 for tensors that lie on the CPU. Both kernels are forward-only. The TPU
@@ -20,6 +24,7 @@ plane sum into blocks) and ``interpret`` are not taken.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,13 +34,20 @@ from repro_torch.kernels.sspnna.ref import sspnna_tile_ref
 KERNEL = "sspnna_fused"
 TILES_KERNEL = "sspnna_tiles"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# sspnna_fused_f32(feats, weights, out_rows, in_rows, local_idx, pair_counts,
+# out, t, d_o, d_i, k, c, n, n_out, stream) of csrc/sspnna_fused.cu
+FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
     fn = lib.sspnna_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = FUSED_ARGTYPES
     fn.restype = ctypes.c_int
+    lib.sspnna_fused_geometry.argtypes = ([ctypes.c_int] * 5
+                                          + [ctypes.POINTER(ctypes.c_int)])
+    lib.sspnna_fused_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -141,10 +153,14 @@ TILES_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 sspnna_tiles_plain = sspnna_tile_ref
 
 
+@functools.cache
 def _tiles_library() -> ctypes.CDLL:
     lib = build.load(TILES_KERNEL)
     lib.sspnna_tiles.argtypes = TILES_ARGTYPES
     lib.sspnna_tiles.restype = ctypes.c_int
+    lib.sspnna_tiles_geometry.argtypes = ([ctypes.c_int] * 6
+                                          + [ctypes.POINTER(ctypes.c_int)])
+    lib.sspnna_tiles_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -211,3 +227,28 @@ def sspnna_tiles(feats: torch.Tensor, local_idx: torch.Tensor,
 
 
 sspnna_tiles.launches = 0
+
+
+GEOMETRY = ("grid_x", "grid_y", "threads", "rows_per_block",
+            "channels_per_block", "stages", "smem_bytes", "blocks_per_sm")
+
+
+def launch_geometry(kernel: str, t: int, d_o: int, k: int, c: int, n: int,
+                    dtype: torch.dtype = torch.float32) -> dict[str, int]:
+    """The CUDA launch that ``sspnna_fused`` (``kernel=KERNEL``) or
+    ``sspnna_tiles`` (``TILES_KERNEL``) makes for ``t`` tiles of ``d_o``
+    slots, ``k`` planes, C=``c``, N=``n``: grid, threads, rows and channels
+    a block, plane stages, shared memory and the blocks an SM holds at once,
+    keyed as ``GEOMETRY``. Builds and loads the library; needs the card."""
+    shape = (ctypes.c_int * len(GEOMETRY))()
+    if kernel == KERNEL:
+        err = _library().sspnna_fused_geometry(t, d_o, k, c, n, shape)
+    elif kernel == TILES_KERNEL:
+        err = _tiles_library().sspnna_tiles_geometry(
+            t, d_o, k, c, n, _DTYPE_CODE[dtype], shape)
+    else:
+        raise ValueError(f"no SSpNNA kernel named {kernel!r}")
+    if err:
+        raise ValueError(f"{kernel} has no launch for T={t} dO={d_o} K={k} "
+                         f"C={c} N={n}: CUDA error {err}")
+    return dict(zip(GEOMETRY, shape, strict=True))

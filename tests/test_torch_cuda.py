@@ -217,6 +217,124 @@ def test_plane_split_conv_through_kernel_matches_reference(cuda_device):
                                ref.cpu().numpy()[mask], rtol=1e-4, atol=1e-4)
 
 
+# The SSpNNA kernels' edges, on the card only (kept out of
+# TILE_STACK_CASES, which the CPU tests also hold against the JAX
+# package): (name, t, d_i, d_o, k, c, n, dtype). A block owns 16-128
+# consecutive (tile, slot) rows and a slice of N, chosen from T * dO and N,
+# and copies rows in 16-, 4- or 2-byte pieces as C, N and the base allow.
+SSPNNA_EDGE_CASES = [
+    # 128-row blocks spanning 16 tiles of dO=8, dead tiles and pad slots
+    ("span", 5000, 16, 8, 27, 8, 16, torch.float32),
+    # a tile of dO=512 split over several blocks
+    ("d_o512", 6, 200, 512, 27, 32, 16, torch.float32),
+    # two planes all holes everywhere, every third plane all holes in
+    # the first half of the tiles: whole blocks skip planes
+    ("holed", 40, 64, 32, 27, 16, 32, torch.float32),
+    # few tiles, wide N (the coarsest level's grid), N split across blocks
+    ("few_wide", 4, 96, 32, 27, 64, 64, torch.float32),
+    ("split_n", 3, 64, 32, 27, 48, 128, torch.float32),
+    # C and N off the product's steps; slots of a tile cut by a block edge
+    ("c4n18", 12, 32, 24, 27, 4, 18, torch.float32),
+    ("c6n20", 12, 32, 24, 27, 6, 20, torch.float32),
+    ("c9n20", 12, 32, 24, 27, 9, 20, torch.float32),
+    ("c12n18", 12, 32, 24, 27, 12, 18, torch.float32),
+    # bf16 stacks: 4-byte rows, odd N (2-byte weight rows), 16-byte rows
+    ("c12n20_bf16", 12, 32, 24, 27, 12, 20, torch.bfloat16),
+    ("c4n18_bf16", 12, 32, 24, 8, 4, 18, torch.bfloat16),
+    ("c6n9_bf16", 12, 32, 24, 27, 6, 9, torch.bfloat16),
+    ("c96n48_bf16", 10, 64, 32, 27, 96, 48, torch.bfloat16),
+]
+SSPNNA_EDGE_F32 = [x for x in SSPNNA_EDGE_CASES if x[7] == torch.float32]
+
+
+def edge_tables(case):
+    """``random_tile_tables`` for an edge case, as numpy arrays, with the
+    "holed" case's planes cleared and its pair counts recounted."""
+    name, t, d_i, d_o, k, c, n, _ = case
+    v = 2 * t * d_o + d_i
+    arrays = list(random_tile_tables(
+        np.random.default_rng(t * d_o + c * n), v=v, c=c, n=n, t=t,
+        d_i=d_i, d_o=d_o, k=k, dead_p=0.25))
+    if name == "holed":
+        idx = arrays[4]
+        idx[:, :, [0, k - 1]] = -1
+        idx[: t // 2, :, 1::3] = -1
+        arrays[5] = (idx >= 0).sum(axis=(1, 2)).astype(np.int32)
+    return v, arrays
+
+
+def off_16b(x):
+    """A contiguous copy of x that starts one element into its storage."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "feats_off_16B"])
+@pytest.mark.parametrize("case", SSPNNA_EDGE_F32, ids=lambda x: x[0])
+def test_fused_kernel_edges(cuda_device, case, aligned):
+    v, arrays = edge_tables(case)
+    feats, weights, out_rows, in_rows, local_idx, counts = (
+        torch.from_numpy(x).to(cuda_device) for x in arrays)
+    if not aligned:
+        feats = off_16b(feats)
+    launches = sspnna_fused.launches
+    got = sspnna_fused(feats, weights, out_rows, in_rows, local_idx, counts,
+                       n_out=v)
+    torch.cuda.synchronize()
+    assert sspnna_fused.launches == launches + 1
+    want = sspnna_fused_plain(feats, weights, out_rows, in_rows, local_idx,
+                              counts, n_out=v)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "feats_off_16B"])
+@pytest.mark.parametrize("case", SSPNNA_EDGE_CASES, ids=lambda x: x[0])
+def test_tiles_kernel_edges(cuda_device, case, aligned):
+    name, t, d_i, d_o, k, c, n, dt = case
+    _, arrays = edge_tables(case)
+    feats, idx, w = (x.to(cuda_device) for x in random_tile_stack(
+        np.random.default_rng(t + d_i + c), t=t, d_i=d_i, d_o=d_o, k=k, c=c,
+        n=n, dtype=dt))
+    idx = torch.from_numpy(arrays[4]).to(cuda_device)  # the case's holes
+    if not aligned:
+        feats = off_16b(feats)
+    launches = sspnna_tiles.launches
+    got = sspnna_tiles(feats, idx, w)
+    torch.cuda.synchronize()
+    assert sspnna_tiles.launches == launches + 1
+    want = sspnna_tiles_plain(feats, idx, w)
+    dead = (idx < 0).all(dim=2)
+    assert got.dtype == dt and not got[dead].any()
+    tol = TILE_STACK_TOL[dt]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSPNNA_EDGE_F32, ids=lambda x: x[0])
+def test_tiles_on_gathered_stack_equal_fused_bit_for_bit(cuda_device, case):
+    """sspnna_tiles on the stack that run_sspnna_conv(fused=False) gathers
+    gives every live slot the fused kernel's value exactly: one tile body,
+    one launch geometry, one order of sums."""
+    v, arrays = edge_tables(case)
+    feats, weights, out_rows, in_rows, local_idx, counts = (
+        torch.from_numpy(x).to(cuda_device) for x in arrays)
+    fused = sspnna_fused(feats, weights, out_rows, in_rows, local_idx,
+                         counts, n_out=v)
+    stack = torch.where((in_rows >= 0).unsqueeze(-1),
+                        feats[in_rows.clamp(min=0).long()], 0)
+    tiles = sspnna_tiles(stack, local_idx, weights)
+    torch.cuda.synchronize()
+    live = (counts > 0).unsqueeze(1) & (out_rows >= 0)
+    assert bool(live.any())
+    assert torch.equal(tiles[live], fused[out_rows[live].long()])
+
+
 def flash_case_id(case):
     b, sq, skv, hq, hkv, d, causal, window, cap, dt = case
     return (f"b{b}q{sq}k{skv}h{hq}x{hkv}d{d}{'c' if causal else 'n'}"
