@@ -7,8 +7,10 @@
    CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc, one
    process per source, all at once; prints the registers and spills
    ``ptxas -v`` reports for the bf16 flash kernels (the tensor-core
-   ``wgmma`` design) and for every instantiation of the SSpNNA tile kernel
-   (``mma.sync``), and fails if any of them spills.
+   ``wgmma`` design), for every instantiation of the SSpNNA tile kernel
+   (``mma.sync``) and for every instantiation of the expert GEMM's kernels
+   (bf16 ``wgmma`` tiles and ``mma.sync`` slabs, f32 CUDA cores), and fails
+   if any of them spills.
 2. Holds the fused SSpNNA kernel against its plain PyTorch version on random
    tile tables (holes, dead tiles, pad slots, C=4, N=48, C and N not
    multiples of 4).
@@ -84,8 +86,10 @@
    logits at full width and 4 layers against the plain expert products in
    f32 and bf16; and reports (ungated) the full-depth bf16 logits against
    the plain expert products, for which no f32 noise floor fits the card.
-13. Times the kernel at the path's three launch shapes beside its plain
-   version, ``torch.bmm`` (a yardstick the port never calls) and its bound;
+13. Times the kernel at the path's four launch shapes beside its plain
+   version, ``torch.bmm`` (a yardstick the port never calls) and its bound,
+   as one call (``time_ms``) and, kernel and ``torch.bmm``, on the device
+   (``device_ms``);
    holds flash at layer 0's inputs (D=128) against its plain version and
    times it beside SDPA; times a wave's prefill and decode.
 
@@ -1162,6 +1166,28 @@ def moe_gemm_bound(xin, w, valid, out_dtype):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
+# the expert GEMM's kernel instantiations: the bf16 wgmma tiles (f32 or
+# bf16 out, 16-byte or 2-byte copies), the bf16 mma.sync slabs (also 16 or
+# 64 rows) and the f32 CUDA-core kernel (f32 or bf16 out)
+MOE_GEMM_INSTANCES = 4 + 8 + 2
+
+
+def moe_gemm_label(name: str) -> str:
+    """A readable name for a mangled moe_gemm kernel name."""
+    m = re.search(r"(tile_kernel|slab_kernel|moe_gemm_f32_kernel)"
+                  r"I(f|13__nv_bfloat16)(?:Lb([01])E)?(?:Li(\d+)E)?E", name)
+    if not m:
+        return name
+    kind = {"tile_kernel": "bf16 wgmma tile", "slab_kernel": "bf16 slab",
+            "moe_gemm_f32_kernel": "f32"}[m.group(1)]
+    label = f"{kind}, {'f32' if m.group(2) == 'f' else 'bf16'} out"
+    if m.group(3):
+        label += ", 16-byte copies" if m.group(3) == "1" else ", 2-byte loads"
+    if m.group(4):
+        label += f", {16 * int(m.group(4))} rows"
+    return label
+
+
 def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     """Phases 10-13: the expert GEMM on random shapes, Moonshot 16B-A3B
     served at full width and depth, the checks at real inputs and the
@@ -1462,24 +1488,29 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         del got, want, routed, plain
 
     phase("MoE timing")
-    rows = {}   # name -> (kernel ms, plain ms, bmm ms, bound ms, bound by)
+    # (where, d) -> (kernel ms, plain ms, bmm ms, bound ms, bound by, kernel
+    # device ms, bmm device ms)
+    rows = {}
     with torch.inference_mode():
         for (where, d, odt), (xin, w, valid, _) in sorted(
                 timed.items(), key=lambda kv: (kv[0][0] != "prefill", -kv[0][1])):
             name = (f"{where} d={d}->f={w.shape[2]} "
                     f"{str(odt).removeprefix('torch.')}")
             ms = time_ms(lambda: kernel_gemm(xin, w, valid, out_dtype=odt), 5)
+            dms = device_ms(
+                lambda: kernel_gemm(xin, w, valid, out_dtype=odt), 20)
             pms = time_ms(lambda: grouped_gemm_ref(xin, w, valid, odt), 3)
             xm = torch.where(valid[..., None], xin, 0)
             lib_ms = time_ms(lambda: torch.bmm(xm, w), 5)
+            lib_dms = device_ms(lambda: torch.bmm(xm, w), 20)
             b_ms, b_by = moe_gemm_bound(xin, w, valid, odt)
             print(f"moe_gemm {name}: x {tuple(xin.shape)}, valid rows "
                   f"{int(valid.sum())}, experts with a valid row "
-                  f"{int(valid.any(1).sum())}: kernel {ms:.4f} ms, plain "
-                  f"{pms:.4f} ms, torch.bmm {lib_ms:.4f} ms (bf16 out; a "
-                  f"yardstick the port never calls), bound {b_ms:.4f} ms "
-                  f"({b_by})")
-            rows[where, d] = (ms, pms, lib_ms, b_ms, b_by)
+                  f"{int(valid.any(1).sum())}: kernel {ms:.4f} ms (device "
+                  f"{dms:.4f}), plain {pms:.4f} ms, torch.bmm {lib_ms:.4f} "
+                  f"ms (device {lib_dms:.4f}; bf16 out; a yardstick the port "
+                  f"never calls), bound {b_ms:.4f} ms ({b_by})")
+            rows[where, d] = (ms, pms, lib_ms, b_ms, b_by, dms, lib_dms)
         # the device time of every expert-GEMM and flash launch of one
         # prefill and one decode step, in place (CUDA events around each)
         spans = []
@@ -1574,7 +1605,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
           f"expert GEMM {step_ms:.3f} ms (bound {step_bound:.4f} ms; "
           f"{BATCH} sequences, {1e3 * BATCH / decode_ms[-1]:.1f} tokens/s); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    ms, pms, lib_ms, b_ms, b_by = rows["prefill", cfg.d_model]
+    ms, pms, lib_ms, b_ms, b_by, dms, lib_dms = rows["prefill", cfg.d_model]
     entry = {
         "name": "moe_gemm",
         "route": "cuda",
@@ -1589,8 +1620,12 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": lib_ms,
+        # the same launch on the device (chip_smoke.device_ms)
+        "device_ms": dms,
+        "library_device_ms": lib_dms,
         "shapes": {f"{w_} d={d}": dict(zip(
-            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"), r))
+            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "device_ms", "library_device_ms"), r))
             for (w_, d), r in rows.items()},
         # summed over the launches of one wave's prefill and of one decode
         # step, timed in place
@@ -1656,6 +1691,17 @@ def main() -> int:
           "from the build (4 fused f32, 4 tile-stack f32, 4 bf16)")
     check(all(sp == 0 for _, sp in sspnna_ptxas.values()),
           "an SSpNNA kernel spills registers")
+    moe_ptxas = {moe_gemm_label(name): regs_spills
+                 for name, regs_spills in build.ptxas_report(
+                     build.ptxas_log(moe_gemm.KERNEL).read_text()).items()}
+    print("moe_gemm kernels, ptxas -v: " + "; ".join(
+        f"{k}: {r} registers, {sp} bytes spilled"
+        for k, (r, sp) in sorted(moe_ptxas.items())))
+    check(len(moe_ptxas) == MOE_GEMM_INSTANCES, "an expert-GEMM kernel "
+          f"instantiation is missing from the build ({len(moe_ptxas)} of "
+          f"{MOE_GEMM_INSTANCES})")
+    check(all(sp == 0 for _, sp in moe_ptxas.values()),
+          "an expert-GEMM kernel spills registers")
 
     fused_entry, seed0 = scn_path(dev, phase)
     fused_entry["ptxas"] = {k: {"registers": r, "spill_bytes": sp}
@@ -1677,6 +1723,8 @@ def main() -> int:
     print(f"after the LM path: {held:.2f} GiB still allocated")
     check(held < 1.0, "the LM path's tensors were not freed")
     moe_entry, flash_moe = moe_path(dev, phase)
+    moe_entry["ptxas"] = {k: {"registers": r, "spill_bytes": sp}
+                          for k, (r, sp) in sorted(moe_ptxas.items())}
     results[1].update(flash_moe)
     results.append(moe_entry)
     results.append(tiles_entry)

@@ -6,10 +6,15 @@ kernel (``kernels/csrc/moe_gemm.cu``) takes any C, d and f (no block
 divisibility), f32 or bf16 inputs, ``valid`` as a bool (byte) tensor, and
 stores in ``out_dtype``: xin's dtype by default, as the TPU kernel does, or
 float32, which the MoE layer asks for where the JAX package keeps an f32
-product (``models.moe``). Rows that are not valid come out as exact zeros;
-a tile whose rows are all invalid writes its zeros without reading its
-slice of ``w``. ``grouped_gemm_ref`` computes the same function with plain
-PyTorch ops; the wrapper uses it only for tensors that lie on the CPU.
+product (``models.moe``). Rows that are not valid come out as exact zeros.
+bf16 inputs run on the tensor cores: for C >= 64 (prefill) on ``wgmma``
+tiles of 128 of an expert's valid rows by 128 columns, for C < 64
+(decode) on 64-column slabs of ``w`` streamed through ``mma.sync``; f32
+inputs run on the CUDA cores. A row tile past an expert's valid rows,
+and an expert no row chose, write their zeros without reading ``w``.
+Sums are bitwise reproducible (no atomics). ``grouped_gemm_ref`` computes
+the same function with plain PyTorch ops; the wrapper uses it only for
+tensors that lie on the CPU.
 """
 from __future__ import annotations
 

@@ -88,3 +88,29 @@ def test_defines_build_a_variant_under_a_key_of_its_own(csrc):
     with (csrc / "tile.cuh").open("a") as f:  # variants follow the header too
         f.write("int edited;\n")
     assert build.library_path("a", ("X=1",)) != one
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "moe_gemm"])
+def test_tensor_core_kernels_take_their_primitives_from_hopper_header(kernel):
+    """flash_fwd.cu and moe_gemm.cu reach csrc/hopper.cuh (the wgmma and
+    cp.async primitives they share); the SSpNNA sources do not."""
+    assert "hopper.cuh" in {p.name for p in build.sources(kernel)}
+    for other in ("sspnna_fused", "sspnna_tiles"):
+        assert "hopper.cuh" not in {p.name for p in build.sources(other)}
+
+
+def test_editing_hopper_header_rebuilds_flash_and_moe_gemm_only(
+        tmp_path, monkeypatch):
+    """On a copy of the real csrc/: an edit to hopper.cuh changes the keys
+    of the flash and expert-GEMM libraries and of no other."""
+    for path in build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = sorted(p.stem for p in tmp_path.glob("*.cu"))
+    assert {"flash_fwd", "moe_gemm", "sspnna_fused", "sspnna_tiles"} <= set(names)
+    before = {n: build.library_path(n) for n in names}
+    with (tmp_path / "hopper.cuh").open("a") as f:
+        f.write("// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert {n for n in names if before[n] != after[n]} == {"flash_fwd",
+                                                           "moe_gemm"}

@@ -511,3 +511,154 @@ def test_moe_prefill_launches_grouped_gemm_per_moe_layer(cuda_device):
     for got, want in zip(out["cuda"], out["cpu"], strict=True):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# (e, c, d, f, valid rows, dtype, out dtype), beyond MOE_GEMM_CASES: C on
+# both sides of the bf16 kernels' switch at 64 rows (8, 16, 63 | 64, 65)
+# and Moonshot's prefill C = 968 (eight 128-row tiles); d and f that are no
+# multiple of the 64-deep steps, the 64-column slabs or the 128-column
+# tiles (f = 129 and d = 45 also take the 2-byte copies); valid rows as
+# the dispatch lays them out ("prefix2": each of two groups fills a prefix
+# of its half, one expert none, one all), at random ("random"), with
+# expert 0 empty ("empty0"), or all valid ("all").
+MOE_EDGE_CASES = [
+    (6, 8, 136, 200, "prefix2", torch.bfloat16, torch.float32),
+    (5, 16, 72, 264, "empty0", torch.bfloat16, torch.bfloat16),
+    (4, 63, 200, 130, "random", torch.bfloat16, torch.float32),
+    (4, 63, 45, 77, "empty0", torch.bfloat16, torch.bfloat16),
+    (3, 64, 136, 200, "prefix2", torch.bfloat16, torch.float32),
+    (3, 65, 200, 136, "empty0", torch.bfloat16, torch.bfloat16),
+    (3, 65, 45, 101, "prefix2", torch.bfloat16, torch.float32),
+    (4, 968, 264, 392, "prefix2", torch.bfloat16, torch.float32),
+    (4, 968, 200, 136, "random", torch.bfloat16, torch.bfloat16),
+    (2, 300, 1000, 264, "random", torch.bfloat16, torch.bfloat16),
+    (3, 129, 64, 129, "all", torch.bfloat16, torch.float32),
+]
+
+
+def edge_valid(rng, e, c, layout):
+    """valid (E, C) bool laid out as ``layout`` (see MOE_EDGE_CASES)."""
+    if layout == "all":
+        return np.ones((e, c), bool)
+    if layout != "prefix2":
+        valid = rng.random((e, c)) < 0.6
+        if layout == "empty0":
+            valid[0] = False
+        return valid
+    valid = np.zeros((e, c), bool)
+    for lo, hi in ((0, c // 2), (c // 2, c)):
+        n = rng.integers(0, hi - lo + 1, e)
+        n[0], n[-1] = 0, hi - lo
+        for i in range(e):
+            valid[i, lo:lo + n[i]] = True
+    return valid
+
+
+def edge_inputs(case, dev):
+    e, c, d, f, layout, dt, _ = case
+    rng = np.random.default_rng(e * c + d + f)
+    xin, w, _ = random_moe_inputs(rng, e=e, c=c, d=d, f=f, valid_share=1.0,
+                                  dtype=dt)
+    valid = torch.from_numpy(edge_valid(rng, e, c, layout))
+    return xin.to(dev), w.to(dev), valid.to(dev)
+
+
+def moe_edge_id(case):
+    e, c, d, f, layout, dt, odt = case
+    return (f"e{e}c{c}d{d}f{f}-{layout}-{str(dt).removeprefix('torch.')}-"
+            f"{str(odt).removeprefix('torch.')}")
+
+
+def check_moe_gemm(xin, w, valid, odt):
+    """One launch against the plain version at the case's tolerance;
+    invalid rows exact zeros."""
+    launches = grouped_gemm.launches
+    got = grouped_gemm(xin, w, valid, out_dtype=odt)
+    torch.cuda.synchronize()
+    assert grouped_gemm.launches == launches + 1
+    assert got.dtype == odt and not got[~valid].any()
+    want = grouped_gemm_ref(xin, w, valid, odt)
+    tol = moe_gemm_tol(xin.dtype, odt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "x_off_16B"])
+@pytest.mark.parametrize("case", MOE_EDGE_CASES, ids=moe_edge_id)
+def test_moe_gemm_edges(cuda_device, case, aligned):
+    xin, w, valid = edge_inputs(case, cuda_device)
+    check_moe_gemm(xin if aligned else off_16b(xin), w, valid, case[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,odt", [(2048, 1408, torch.float32),
+                                     (1408, 2048, torch.bfloat16)],
+                         ids=["gate", "down"])
+def test_moe_gemm_at_moonshot_prefill_width(cuda_device, d, f, odt):
+    """Moonshot's prefill launch: 64 experts, two groups of 484 capacity
+    slots each filled as a prefix, bf16 inputs drawn on the card."""
+    e, c = 64, 968
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    xin = torch.randn(e, c, d, generator=gen, device=cuda_device).bfloat16()
+    w = (0.1 * torch.randn(e, d, f, generator=gen,
+                           device=cuda_device)).bfloat16()
+    valid = torch.from_numpy(edge_valid(np.random.default_rng(d), e, c,
+                                        "prefix2")).to(cuda_device)
+    check_moe_gemm(xin, w, valid, odt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (4, 968, 264, 392, "prefix2", torch.bfloat16, torch.float32),
+    (4, 63, 200, 130, "random", torch.bfloat16, torch.float32),
+    (64, 8, 2048, 1408, "prefix2", torch.bfloat16, torch.float32),
+    (16, 8, 1408, 2048, "prefix2", torch.bfloat16, torch.bfloat16),
+], ids=moe_edge_id)
+def test_moe_gemm_two_launches_equal_bit_for_bit(cuda_device, case):
+    """The same inputs give the same sums, bit for bit: no sum depends on
+    which block or warp finishes first."""
+    xin, w, valid = edge_inputs(case, cuda_device)
+    first = grouped_gemm(xin, w, valid, out_dtype=case[6])
+    second = grouped_gemm(xin, w, valid, out_dtype=case[6])
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [40, 1], ids=["prefill", "decode"])
+def test_apply_moe_waits_for_no_host_copy(cuda_device, tokens):
+    """A reduced Moonshot MoE layer in bf16 (64 or 8 expert rows: both bf16
+    kernels) enqueues its three expert products without a host sync, and
+    agrees with the plain products on the same routing."""
+    from repro_torch.models import moe
+
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    gen = torch.Generator(device=cuda_device).manual_seed(tokens)
+    params = moe.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.moe.n_experts,
+                          "swiglu", torch.bfloat16, cuda_device)
+    x = torch.randn(2, tokens, cfg.d_model, generator=gen,
+                    device=cuda_device).bfloat16()
+    cap = moe.moe_capacity(tokens, cfg.moe.top_k, cfg.moe.n_experts,
+                           cfg.moe.capacity_factor)
+    kw = dict(top_k=cfg.moe.top_k, capacity=cap, act="swiglu")
+    launches = grouped_gemm.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            got, _ = moe.apply_moe(params, x, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert grouped_gemm.launches == launches + 3
+    kernel = moe.grouped_gemm
+    moe.grouped_gemm = lambda xin, w, valid, *, out_dtype=None: (
+        grouped_gemm_ref(xin, w, valid, out_dtype))
+    try:
+        with torch.inference_mode():
+            want, _ = moe.apply_moe(params, x, **kw)
+    finally:
+        moe.grouped_gemm = kernel
+    assert (2 * cap < 64) == (tokens == 1)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert float(err) <= moe_gemm_tol(torch.bfloat16, torch.bfloat16)

@@ -11,7 +11,9 @@ exact in f32; the sums run in another order); 2e-2 where the output is
 rounded to bf16, as in ``tests/test_kernels.py``.
 """
 import ctypes
+import importlib.util
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -142,3 +144,38 @@ def test_argtypes_match_the_c_signature():
     want = [kinds[re.sub(r"\s+", "", p.rsplit(None, 1)[0]).removeprefix(
         "const")] for p in params]
     assert want == ARGTYPES
+
+
+# the entry functions ptxas -v printed for csrc/moe_gemm.cu on the card (an
+# H100 build, names as mangled in its anonymous namespace)
+P = "_ZN44_GLOBAL__N__34a4ae3e_11_moe_gemm_cu_moe_gemm"
+MOE_GEMM_ENTRIES = [
+    P + "6decode11slab_kernelI13__nv_bfloat16Lb0ELi4EEEvPKS2_S4_PKhPT_iii",
+    P + "6decode11slab_kernelI13__nv_bfloat16Lb0ELi1EEEvPKS2_S4_PKhPT_iii",
+    P + "6decode11slab_kernelI13__nv_bfloat16Lb1ELi4EEEvPKS2_S4_PKhPT_iii",
+    P + "6decode11slab_kernelI13__nv_bfloat16Lb1ELi1EEEvPKS2_S4_PKhPT_iii",
+    P + "6decode11slab_kernelIfLb0ELi4EEEvPK13__nv_bfloat16S4_PKhPT_iii",
+    P + "6decode11slab_kernelIfLb0ELi1EEEvPK13__nv_bfloat16S4_PKhPT_iii",
+    P + "6decode11slab_kernelIfLb1ELi4EEEvPK13__nv_bfloat16S4_PKhPT_iii",
+    P + "6decode11slab_kernelIfLb1ELi1EEEvPK13__nv_bfloat16S4_PKhPT_iii",
+    P + "7prefill11tile_kernelI13__nv_bfloat16Lb0EEEvPKS2_S4_PKhPT_iii",
+    P + "7prefill11tile_kernelI13__nv_bfloat16Lb1EEEvPKS2_S4_PKhPT_iii",
+    P + "7prefill11tile_kernelIfLb0EEEvPK13__nv_bfloat16S4_PKhPT_iii",
+    P + "7prefill11tile_kernelIfLb1EEEvPK13__nv_bfloat16S4_PKhPT_iii",
+    P + "19moe_gemm_f32_kernelI13__nv_bfloat16EEvPKfS3_PKhPT_iii",
+    P + "19moe_gemm_f32_kernelIfEEvPKfS2_PKhPT_iii",
+]
+
+
+def test_chip_smoke_names_every_moe_gemm_instantiation():
+    """chip_smoke.py fails unless ptxas reports MOE_GEMM_INSTANCES kernels
+    of moe_gemm.cu, each under a readable name of its own."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    labels = {chip_smoke.moe_gemm_label(n) for n in MOE_GEMM_ENTRIES}
+    assert len(labels) == len(MOE_GEMM_ENTRIES) == chip_smoke.MOE_GEMM_INSTANCES
+    assert not any(label.startswith("_Z") for label in labels)
+    assert "bf16 wgmma tile, f32 out, 16-byte copies" in labels
+    assert "bf16 slab, bf16 out, 2-byte loads, 64 rows" in labels
