@@ -49,12 +49,23 @@
    ``torch.matmul`` of the already-gathered block (a yardstick the port
    never calls); then the whole forward runs with ``use_kernel=False``,
    launching no kernel, and its logits must match ``auto``'s.
-7. Holds the flash attention kernel against its plain version on random
+7. Serves seeds 0-2 as one wave of 3 through ``SceneEngine`` with a spec
+   pinned from the same scenes (``build_plan_spec``) and the kernel on,
+   blocking and then pipelined on one context: the second serve must hit
+   the plan cache, both must give the same logits, each engine captures
+   one CUDA graph (its bucket's) and the wave's ``sspnna_fused`` launches
+   run inside it (a replay ticks no counter: the engine's ``graphs``
+   count what replays ran). The wave's logits must match each scene's own
+   ``apply_unet`` on the same pinned plan (1e-4) and ``reference``
+   (1e-3); the wave is timed eagerly and as a graph replay (host clock,
+   and device time with the busy share), each of its kernel launches held
+   against the plain version and timed on the device.
+8. Holds the flash attention kernel against its plain version on random
    q, k, v (``kernels/flash/ref.FLASH_CASES``: causal and not, sq < skv,
    windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2, ragged
    lengths, and the bf16 kernel's edges: many tiles at D=256, Sq=129, a
    window shorter than a tile, sq > skv, D=32).
-8. Drives the LM serving path: Gemma-2 2B at its published widths (26
+9. Drives the LM serving path: Gemma-2 2B at its published widths (26
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
    4096, softcaps 50 and 30), bf16, random weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``. An ``Engine`` (batch 2, prompt
@@ -64,29 +75,34 @@
    must be equal, and each wave's last-position logits must match the same
    weights with the attention's plain version, in f32 (the weights cast up)
    and in bf16 (first tokens equal).
-9. Replays every flash launch of one wave's prefill against the plain
+10. Replays every flash launch of one wave's prefill against the plain
    version and times kernel, plain version and bound; at the global-layer
    shape it also times the kernel without softcap beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
-   Then times one wave's prefill and its decode steps.
-10. Frees the Gemma path and holds the grouped expert GEMM kernel against
+   Then times one wave's prefill and its decode steps, and decode per
+   token as eager steps against the serving engine's step graphs (one
+   CUDA graph per step index, replayed by every wave), with the device's
+   busy share; the two must emit the same tokens.
+11. Frees the Gemma path and holds the grouped expert GEMM kernel against
    its plain version (``kernels/moe_gemm/ref.MOE_GEMM_CASES``: the JAX
    test's shapes, ragged C, d and f, an expert with no valid row, C = 8,
    f32 and bf16 with both output dtypes).
-11. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
+12. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
    and depth (48 layers, d_model 2048, 16 heads of 128, 64 experts top-6 of
    d_ff 1408, vocab 163840; 27.7 B parameters), bf16, random weights drawn
    on the card. An ``Engine`` (batch 2, prompt length 4096, 16 new tokens)
    serves four prompts in two waves, blocking and pipelined: each wave must
    launch flash once per layer in its prefill and the expert GEMM three
-   times per layer in its prefill and in each decode step, and both runs
-   must emit the same tokens.
-12. Checks every expert-GEMM launch of one wave's prefill and of one decode
+   times per layer in its prefill and in each decode step (the steps are
+   graph replays, counted by the engine), and both runs must emit the same
+   tokens. Decode per token, eager steps against the step graphs, as for
+   Gemma-2.
+13. Checks every expert-GEMM launch of one wave's prefill and of one decode
    step against the plain version at its real inputs; the last-position
    logits at full width and 4 layers against the plain expert products in
    f32 and bf16; and reports (ungated) the full-depth bf16 logits against
    the plain expert products, for which no f32 noise floor fits the card.
-13. Times the kernel at the path's four launch shapes beside its plain
+14. Times the kernel at the path's four launch shapes beside its plain
    version, ``torch.bmm`` (a yardstick the port never calls) and its bound,
    as one call (``time_ms``) and, kernel and ``torch.bmm``, on the device
    (``device_ms``);
@@ -142,6 +158,10 @@ TILES_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # end-to-end: 17 convs, each followed by a BatchNorm that divides by the
 # per-channel std, so per-conv reorderings of ~1e-6 grow layer by layer
 LOGITS_TOL = 1e-3
+# a wave of scenes against each scene's own forward on the same plans: the
+# same kernels over other row counts (cuBLAS may pick another order for the
+# reference convs' products), then a batch norm after every conv
+WAVE_TOL = 1e-4
 SEEDS = (0, 1, 2)
 RESOLUTION, CAPACITY, POINTS_PER_UNIT = 256, 131072, 2e6
 DEVICE = "cuda"
@@ -904,8 +924,265 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
     }
 
 
+def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
+    """Phase 7: SCN batched serving. Pins a spec from seeds 0-2, serves
+    them as one wave of 3 through a ``SceneEngine``, blocking and then
+    pipelined on the same context (the second serve hits the plan cache),
+    holds the wave's logits against each scene's own ``apply_unet`` on the
+    same pinned plans and against ``backend="reference"``, and times the
+    wave eagerly and as the bucket's graph replay. Each ``sspnna_fused``
+    launch of the wave is held against the plain version and timed on the
+    device. Returns the numbers for the kernel's JSON entry."""
+    from repro_torch import engine
+    from repro_torch.data.scenes import make_scene
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.sspnna import ops, sspnna
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+    from repro_torch.sparse.tensor import SparseVoxelTensor
+
+    fused, plain = sspnna.sspnna_fused, sspnna.sspnna_fused_plain
+    phase("SCN serving: spec")
+    scenes = []
+    for seed in SEEDS:
+        coords, feats, _, mask = make_scene(seed, RESOLUTION, CAPACITY,
+                                            points_per_unit=POINTS_PER_UNIT)
+        scenes.append(SparseVoxelTensor(coords, feats, mask))
+    t0 = time.perf_counter()
+    spec = engine.build_plan_spec(scenes, cfg)
+    print(f"plan spec pinned from seeds {SEEDS} in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"L{li} {d.backend}" + (f" dO={d.delta_o} dI={d.delta_i} "
+                                      f"T={d.n_tiles}"
+                                      if d.backend == engine.SSPNNA else "")
+              for li, d in enumerate(spec.levels)))
+
+    phase("SCN serving")
+    ctx = engine.ExecutionContext(device=dev)
+    # the serving path's counts: set to 0 here, read after both serves
+    fused.launches = sspnna.sspnna_tiles.launches = 0
+    flash_attention.launches = grouped_gemm.launches = 0
+    runs = {}
+    with torch.inference_mode():
+        for sync in (True, False):
+            eng = SceneEngine(cfg, model, len(scenes), spec=spec, ctx=ctx,
+                              sync=sync)
+            hits, misses = ctx.plan_cache.hits, ctx.plan_cache.misses
+            handles = eng.submit([SceneRequest(seed, t)
+                                  for seed, t in zip(SEEDS, scenes)])
+            t0 = time.perf_counter()
+            eng.serve()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            logits = np.stack([h.result().logits for h in handles])
+            eng.close()
+            st = eng.wave_stats
+            print(f"serve sync={sync}: {len(st)} wave of {len(scenes)} "
+                  f"scenes in {wall_s:.3f} s; plan cache "
+                  f"{ctx.plan_cache.misses - misses} misses, "
+                  f"{ctx.plan_cache.hits - hits} hits, plan stage "
+                  f"{sum(x.plan_ms for x in st):.1f} ms; graphs "
+                  f"{len(eng.graphs)}, replays {eng.graphs.replays}, "
+                  f"sspnna_fused launches a replay "
+                  f"{eng.graphs.launches(cfg.capacity)['sspnna_fused']}")
+            check(len(st) == 1 and eng.n_compilations == 1
+                  and len(eng.graphs) == 1, "one wave, one graph expected")
+            check(logits.shape == (len(scenes), CAPACITY, cfg.n_classes)
+                  and bool(np.isfinite(logits).all()),
+                  "wave logits not finite or of the wrong shape")
+            runs[sync] = (eng, logits, wall_s, sum(x.plan_ms for x in st))
+    check(ctx.plan_cache.misses == len(scenes)
+          and ctx.plan_cache.hits == len(scenes),
+          "the second serve did not hit the plan cache")
+    check(np.array_equal(runs[True][1], runs[False][1]),
+          "sync and async serving gave other logits")
+    engines = [r[0] for r in runs.values()]
+    # a replay ticks no counter: the graphs count what their replays ran
+    captured = sum(e.graphs.captured["sspnna_fused"] for e in engines)
+    replayed = sum(e.graphs.replayed["sspnna_fused"] for e in engines)
+    launched = fused.launches - captured + replayed
+    print(f"SCN serving path: sspnna_fused counter {fused.launches} "
+          f"(warm-ups and {captured} recorded at capture), {replayed} run by "
+          f"replays: {launched} launches on the device")
+    check(replayed > 0 and captured > 0, "the wave did not run sspnna_fused "
+          "inside the bucket's graph")
+    check(sspnna.sspnna_tiles.launches == flash_attention.launches
+          == grouped_gemm.launches == 0,
+          "the SCN serving path launched another kernel")
+    print(f"plan cache: a miss costs {runs[True][3] / len(scenes):.1f} ms of "
+          f"plan stage a scene, a hit {runs[False][3] / len(scenes):.3f} ms")
+
+    phase("SCN serving checks")
+    plan_kw = dict(spec=spec, plan_tiles=True, order="soar", soar_chunk=512)
+    with torch.inference_mode():
+        plans = [ctx.plan_cache.get_or_build(
+            t, cfg, device=dev, topology=ctx.topology_key(), **plan_kw)
+            for t in scenes]
+        feats = [torch.from_numpy(t.feats).to(dev) for t in scenes]
+        for i, seed in enumerate(SEEDS):
+            wave = torch.from_numpy(runs[True][1][i]).to(dev)
+            own = engine.apply_unet(model, feats[i], plans[i], device=dev)
+            ref = engine.apply_unet(model, feats[i], plans[i],
+                                    backend="reference", device=dev)
+            _, own_err = max_err(wave, own)
+            _, ref_err = max_err(wave, ref)
+            print(f"seed {seed}: wave logits vs its own apply_unet on the "
+                  f"pinned plan rel {own_err:.3g} (tol {WAVE_TOL}), vs "
+                  f"reference rel {ref_err:.3g} (tol {LOGITS_TOL})")
+            check(own_err <= WAVE_TOL, "wave and per-scene logits disagree")
+            check(ref_err <= LOGITS_TOL, "wave and reference logits disagree")
+
+    phase("SCN serving timing")
+    eng = runs[True][0]
+    n = len(scenes)
+    with torch.inference_mode():
+        def eager():
+            return engine.apply_unet(model, torch.cat(feats),
+                                     engine.stack_plans(plans), device=dev)
+
+        def graph():
+            return eng.run_wave(feats, plans, cfg.capacity)
+
+        _, g_err = max_err(graph(), eager())
+        check(g_err <= 1e-5, "graph replay and eager wave disagree")
+        times = {}
+        for name, fn in (("eager", eager), ("graph", graph)):
+            wall = host_ms(fn, 5)
+            times[name] = {"ms": wall, "device_ms": device_ms(fn, 2)}
+            print(f"wave of {n}, {name}: {wall:.3f} ms ({wall / n:.3f} ms a "
+                  f"scene; host clock after synchronize, median of 5), "
+                  f"device span {times[name]['device_ms']:.3f} ms (calls "
+                  f"queued behind a spin)")
+            times[name].update(busy_report(f"wave of {n}, {name}", fn, wall))
+
+        def one():
+            return engine.apply_unet(model, feats[0], plans[0], device=dev)
+
+        one_ms = host_ms(one, 5)
+        print(f"one scene's forward on its pinned plan: {one_ms:.3f} ms")
+        one_busy = busy_report("one scene's forward", one, one_ms)
+        # the wave's kernel launches at their real inputs
+        calls = []
+
+        def record(*args, **kw):
+            calls.append((args, kw))
+            return fused(*args, **kw)
+
+        ops.sspnna_fused = record
+        try:
+            eager()
+            for i in range(n):
+                engine.apply_unet(model, feats[i], plans[i], device=dev)
+        finally:
+            ops.sspnna_fused = fused
+        per_wave = len(calls) // (n + 1)
+        check(per_wave == eng.graphs.launches(cfg.capacity)["sspnna_fused"],
+              "the graph records another number of launches than the eager "
+              "wave makes")
+        wave_dev = own_dev = bound = 0.0
+        worst_abs = 0.0
+        dead = sum(int((args[5] == 0).sum()) for args, _ in calls[:per_wave])
+        tiles = sum(args[5].numel() for args, _ in calls[:per_wave])
+        for j, (args, kw) in enumerate(calls):
+            d_ms = device_ms(lambda: fused(*args, **kw), 10)
+            if j < per_wave:
+                abs_err, rel_err = max_err(fused(*args, **kw),
+                                           plain(*args, **kw))
+                check(rel_err <= KERNEL_TOL, f"wave launch {j} disagrees")
+                worst_abs = max(worst_abs, abs_err)
+                wave_dev += d_ms
+                bound += sspnna_bound(*args, kw["n_out"])[0]
+            else:
+                own_dev += d_ms
+    print(f"sspnna_fused per wave: {per_wave} launches, {wave_dev:.4f} ms on "
+          f"the device (bound {bound:.4f} ms); the three scenes' own "
+          f"forwards on the pinned plans {own_dev:.4f} ms; {dead} of the "
+          f"wave's {tiles} tiles are dead (pinned budgets); max abs "
+          f"{worst_abs:.3g} against the plain version")
+    return {"serving_launches": launched,
+            "wave_launches": per_wave,
+            "wave_device_ms": wave_dev,
+            "wave_bound_ms": bound,
+            "pinned_scenes_device_ms": own_dev,
+            "wave_max_abs_err": worst_abs,
+            "wave_dead_tiles": [dead, tiles],
+            "wave": times,
+            "scene": {"ms": one_ms, **one_busy}}
+
+
+def greedy_tokens(step, params, cfg, logits, cache) -> torch.Tensor:
+    """MAX_NEW greedy tokens (B, MAX_NEW) from a prefill's output, the decode
+    steps run eagerly (``step`` is ``make_serve_step(cfg)``)."""
+    tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+    out = [tok]
+    for _ in range(MAX_NEW - 1):
+        nxt, _, cache = step(params, tok, cache)
+        tok = nxt[:, None]
+        out.append(tok)
+    return torch.cat(out, 1)
+
+
+def busy_report(name: str, fn, wall_ms: float, per: int = 1) -> dict:
+    """What the device did in one call of ``fn`` (torch.profiler): its
+    kernels' and copies' time summed over ``per`` units (tokens, scenes),
+    the share of ``wall_ms`` (a unit's wall time) it is, and the top
+    kernels. ``busy_ms`` is None when the profiler saw no device time."""
+    times = device_times(fn)
+    if not times:
+        print(f"{name}: torch.profiler saw no device time (not measured)")
+        return {"busy_ms": None}
+    busy = sum(times.values()) / per
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{name}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+          f"({100 * busy / wall_ms:.1f}%; torch.profiler); top: "
+          + "; ".join(f"{k[:60]} {v / per:.3f} ms" for k, v in top))
+    return {"busy_ms": busy}
+
+
+def decode_graph(eng, prefill, greedy, toks, arch: str) -> dict:
+    """Decode ms a token and the device's busy share, eager steps (``greedy``)
+    against the serving engine's step graphs (``eng.decode``, whose copy of
+    the prefill cache into the graphs' cache is counted), on one prefill of
+    ``toks``; the two must emit the same tokens. Wall time is the host
+    clock after a synchronize; busy time is the device's kernels and
+    copies (torch.profiler) and, for the graphs, also ``device_ms`` (the
+    replays queued behind a spinning kernel; an eager decode's thousands of
+    launches fill the launch queue, so that measure does not hold for it).
+    The timed eager calls decode over a cache an earlier call wrote into:
+    the same work, other tokens."""
+    steps = MAX_NEW - 1
+    with torch.inference_mode():
+        logits, cache = prefill(eng.params, toks)
+        # the graphs read a copy of the cache; the eager steps write into it
+        # (a ring cache's slots then hold later positions), so they go last
+        graph_tok = eng.decode(logits, cache)
+        eager_tok = greedy(logits, cache)
+        check(torch.equal(eager_tok, graph_tok),
+              f"{arch}: graph decode emitted other tokens than eager steps")
+        out = {}
+        for name, fn, reps in (
+                ("eager", lambda: greedy(logits, cache), 2),
+                ("graph", lambda: eng.decode(logits, cache), 5)):
+            wall = host_ms(fn, reps) / steps
+            out[name] = {"ms": wall}
+            print(f"{arch} decode, {name}: {wall:.3f} ms a token (batch "
+                  f"{BATCH}, {steps} steps, median of {reps})")
+            out[name].update(busy_report(f"{arch} decode, {name}", fn, wall,
+                                         steps))
+        span = device_ms(lambda: eng.decode(logits, cache), 5) / steps
+        out["graph"]["device_ms"] = span
+        print(f"{arch} decode, graph: device span {span:.3f} ms a token "
+              f"(replays queued behind a spin; "
+              f"{100 * span / out['graph']['ms']:.1f}% of the wall time)")
+        del logits, cache
+    print(f"{arch} decode tokens, graph = eager: {graph_tok.tolist()}; "
+          f"{len(eng.graphs)} step graphs, speedup "
+          f"{out['eager']['ms'] / out['graph']['ms']:.2f}x")
+    return out
+
+
 def lm_path(dev: torch.device, phase: Phases) -> dict:
-    """Phases 7-9: the flash kernel on random shapes, Gemma-2 2B served at
+    """Phases 8-10: the flash kernel on random shapes, Gemma-2 2B served at
     full width, and the replay of one wave's launches. Returns the kernel's
     JSON entry."""
     from repro_torch.configs import get_config
@@ -981,11 +1258,11 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         wall_s = time.perf_counter() - t0
         out = {h.request.rid: h.result().out for h in handles}
         eng.close()
-        return out, waves, wall_s
+        return out, waves, wall_s, eng
 
     flash_attention.launches = sspnna_fused.launches = 0
-    by_sync, waves, sync_s = serve(sync=True)
-    by_async, async_waves, async_s = serve(sync=False)
+    by_sync, waves, sync_s, sync_eng = serve(sync=True)
+    by_async, async_waves, async_s, _ = serve(sync=False)
     total_launches = flash_attention.launches
     check(sspnna_fused.launches == 0, "the LM path launched sspnna_fused")
     n_new = sum(len(o) for o in by_sync.values())
@@ -1007,14 +1284,7 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
     step = make_serve_step(cfg)
 
     def greedy(logits, cache) -> torch.Tensor:
-        """MAX_NEW greedy tokens (B, MAX_NEW) from a prefill's output."""
-        tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
-        out = [tok]
-        for _ in range(MAX_NEW - 1):
-            nxt, _, cache = step(params, tok, cache)
-            tok = nxt[:, None]
-            out.append(tok)
-        return torch.cat(out, 1)
+        return greedy_tokens(step, params, cfg, logits, cache)
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     params32 = to_float32(params)
@@ -1125,6 +1395,9 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
           f"{decode_ms[-1]:.3f} ms per token ({BATCH} sequences, "
           f"{1e3 * BATCH / decode_ms[-1]:.1f} tokens/s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase("decode graph")
+    graph_decode = decode_graph(sync_eng, prefill, greedy, toks0, LM_ARCH)
+    del sync_eng
     ms, pms, b_ms, b_by = rows[glob]
     return {
         "name": "flash_fwd",
@@ -1146,6 +1419,8 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         "wave_ms": wave_ms,
         "wave_plain_ms": sum(r[1] for r in rows),
         "wave_bound_ms": sum(r[2] for r in rows),
+        # Gemma-2's decode per token, eager steps against the step graphs
+        "decode": graph_decode,
     }
 
 def moe_gemm_bound(xin, w, valid, out_dtype):
@@ -1189,7 +1464,7 @@ def moe_gemm_label(name: str) -> str:
 
 
 def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
-    """Phases 10-13: the expert GEMM on random shapes, Moonshot 16B-A3B
+    """Phases 11-14: the expert GEMM on random shapes, Moonshot 16B-A3B
     served at full width and depth, the checks at real inputs and the
     timings. Returns the kernel's JSON entry and flash's numbers at this
     path's shape."""
@@ -1275,7 +1550,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         eng = Engine(cfg, params, BATCH, MOE_PROMPT_LEN, MAX_NEW, sync=sync,
                      device=dev)
         waves = []   # [tokens, logits, flash launches, expert-GEMM launches]
-        inner_prefill, inner_step = eng.prefill, eng.step
+        inner_prefill = eng.prefill
 
         def prefill(p, toks):
             before = flash_attention.launches, grouped_gemm.launches
@@ -1284,13 +1559,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
                           grouped_gemm.launches - before[1]])
             return logits, cache
 
-        def step(p, tok, cache):
-            before = grouped_gemm.launches
-            out = inner_step(p, tok, cache)
-            waves[-1][3] += grouped_gemm.launches - before
-            return out
-
-        eng.prefill, eng.step = prefill, step
+        eng.prefill = prefill
         handles = eng.submit([Request(i, p, max_new=MAX_NEW)
                               for i, p in enumerate(prompts)])
         t0 = time.perf_counter()
@@ -1299,13 +1568,27 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         wall_s = time.perf_counter() - t0
         out = {h.request.rid: h.result().out for h in handles}
         eng.close()
-        return out, waves, wall_s
+        # the decode steps are graph replays, which tick no counter: each
+        # wave's stats hold the launches its replays ran
+        for w, st in zip(waves, eng.wave_stats, strict=True):
+            w[3] += st.notes["graph_launches"].get("moe_gemm", 0)
+        return out, waves, wall_s, eng
 
     flash_attention.launches = grouped_gemm.launches = 0
     sspnna_fused.launches = 0
-    by_sync, waves, sync_s = serve(sync=True)
-    by_async, async_waves, async_s = serve(sync=False)
-    total_launches = grouped_gemm.launches
+    by_sync, waves, sync_s, sync_eng = serve(sync=True)
+    by_async, async_waves, async_s, async_eng = serve(sync=False)
+    # the counter ticked at each engine's warm-up step and capture; the
+    # replays ran the launches the wave stats count
+    captured = sum(e.graphs.captured["moe_gemm"]
+                   for e in (sync_eng, async_eng))
+    replayed = sum(e.graphs.replayed["moe_gemm"]
+                   for e in (sync_eng, async_eng))
+    total_launches = grouped_gemm.launches - captured + replayed
+    print(f"expert GEMM: counter {grouped_gemm.launches} ({captured} recorded "
+          f"into the step graphs at capture), {replayed} run by replays: "
+          f"{total_launches} launches on the device")
+    del async_eng
     check(sspnna_fused.launches == 0, "the MoE path launched sspnna_fused")
     n_new = sum(len(o) for o in by_sync.values())
     for name, w, sec in (("sync", waves, sync_s),
@@ -1319,7 +1602,8 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
               "a wave's prefill did not launch flash once per layer")
         check(all(x[3] == per_wave for x in w),
               f"a wave did not launch the expert GEMM {per_wave} times")
-    check(total_launches == 2 * len(waves) * per_wave,
+    # and one eager warm-up step an engine before its capture
+    check(total_launches == 2 * len(waves) * per_wave + 2 * per_prefill,
           f"{total_launches} expert-GEMM launches")
     print(f"tokens sync={by_sync}")
     check(by_sync == by_async, "sync and async serving emitted other tokens")
@@ -1332,9 +1616,20 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     print(f"MoE serving peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    phase("MoE checks")
     prefill = make_prefill(cfg, cache_pad=MAX_NEW)
     step = make_serve_step(cfg)
+    toks0 = waves[0][0]
+    phase("MoE decode graph")
+
+    def greedy(logits, cache) -> torch.Tensor:
+        return greedy_tokens(step, params, cfg, logits, cache)
+
+    graph_decode = decode_graph(sync_eng, prefill, greedy, toks0, MOE_ARCH)
+    del sync_eng  # its graphs' cache and pool make room for the checks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("MoE checks")
     kernel_gemm, kernel_bshd = moe.grouped_gemm, attention.flash_attention_bshd
     launch_errs = []    # (abs error, rel error, tolerance) of every launch
     launch_work = {"prefill": [], "decode": []}   # (valid rows, bound ms)
@@ -1361,7 +1656,6 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             flash_in.append((q, k, v, kw))
         return kernel_bshd(q, k, v, **kw)
 
-    toks0 = waves[0][0]
     with torch.inference_mode():
         # (a) every launch of one wave's prefill and one decode step
         moe.grouped_gemm = checked("prefill")
@@ -1633,6 +1927,8 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         "wave_prefill_bound_ms": wave_bound,
         "decode_step_ms": step_ms,
         "decode_step_bound_ms": step_bound,
+        # Moonshot's decode per token, eager steps against the step graphs
+        "decode": graph_decode,
     }
     flash = {"moe_ms": f_ms, "moe_plain_ms": f_pms, "moe_library_ms": f_lib,
              "moe_bound_ms": f_bound, "moe_max_abs_err": f_abs}
@@ -1709,6 +2005,12 @@ def main() -> int:
     results = [fused_entry]
     with torch.inference_mode():  # the model's parameters require grad
         tiles_entry = pregathered_path(dev, phase, seed0)
+    serving = scn_serving_path(dev, phase, seed0["model"], seed0["cfg"])
+    print(f"sspnna_fused on the device: a wave of {len(SEEDS)} on pinned "
+          f"plans {serving['wave_device_ms']:.4f} ms against {len(SEEDS)} x "
+          f"seed 0's adaptive forward {len(SEEDS) * fused_entry['device_ms']:.4f}"
+          f" ms")
+    fused_entry["serving"] = serving
     del seed0
     torch.cuda.empty_cache()
     results.append(lm_path(dev, phase))

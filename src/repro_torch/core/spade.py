@@ -228,3 +228,24 @@ def explore(
         da, br = data_accesses(layer, attrs, 32, 8, 8, "OS", flavor)
         best = Dataflow(32, 8, 8, "OS", flavor, tiling, t, da, br)
     return best
+
+
+def meta_attributes(per_cloud: list[SparsityAttributes]) -> SparsityAttributes:
+    """MSA: average SA_I across a representative pointcloud set (Eqn 10),
+    keeping the most conservative allocation columns."""
+    ref = per_cloud[0]
+
+    def stack(name):
+        return np.stack([getattr(a, name) for a in per_cloud])
+
+    return SparsityAttributes(
+        ref.delta_majors,
+        stack("sa_minor_avg").mean(0),
+        stack("sa_minor_alloc_sst").max(0),
+        stack("sa_minor_alloc_rst").mean(0),
+        stack("arf_avg").mean(0),
+        stack("arf_alloc_sst").max(0),
+        stack("arf_alloc_rst").mean(0),
+        stack("rst_overshoot_frac").mean(0),
+        ref.quantile,
+    )

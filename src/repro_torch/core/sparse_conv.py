@@ -81,14 +81,20 @@ def sparse_conv_cirf(feats_in: torch.Tensor, coir: COIR,
                                   backend="reference")
 
 
-def masked_batchnorm_relu(x, mask, scale, offset, eps: float = 1e-5):
-    """BN + ReLU over active rows only (the SCN conv-block epilogue)."""
-    m = mask.unsqueeze(-1).to(x.dtype)
-    n = m.sum().clamp(min=1.0)
-    mean = (x * m).sum(0) / n
-    var = ((x - mean).square() * m).sum(0) / n
-    y = (x - mean) * torch.rsqrt(var + eps) * scale + offset
-    return torch.relu(y) * m
+def masked_batchnorm_relu(x, mask, scale, offset, eps: float = 1e-5, *,
+                          n_scenes: int = 1):
+    """BN + ReLU over active rows only (the SCN conv-block epilogue).
+    ``n_scenes > 1``: ``x`` holds that many scenes of equal capacity one
+    after the other, and each is normalised by its own statistics (a
+    reduction over a ``(n_scenes, capacity, C)`` view: no atomics)."""
+    v, c = x.shape
+    xs = x.reshape(n_scenes, v // n_scenes, c)
+    m = mask.reshape(n_scenes, -1, 1).to(x.dtype)
+    n = m.sum(1, keepdim=True).clamp(min=1.0)
+    mean = (xs * m).sum(1, keepdim=True) / n
+    var = ((xs - mean).square() * m).sum(1, keepdim=True) / n
+    y = (xs - mean) * torch.rsqrt(var + eps) * scale + offset
+    return (torch.relu(y) * m).reshape(v, c)
 
 
 def sparse_conv_corf(feats_in: torch.Tensor, coir_in_major: COIR,

@@ -123,3 +123,15 @@ def make_scene(
         out_lbl[i] = np.bincount(lbl_s[s:s + c], minlength=N_CLASSES).argmax()
     mask[:n] = True
     return coords, out_feats, out_lbl, mask
+
+
+def scene_batch_iterator(seed: int, batch: int, resolution: int, capacity: int):
+    """Deterministic, restartable scene stream (state = next seed)."""
+    step = 0
+    while True:
+        out = [make_scene(seed + step * batch + b, resolution, capacity)
+               for b in range(batch)]
+        coords, feats, labels, mask = (np.stack(x) for x in zip(*out))
+        yield {"coords": coords, "feats": feats, "labels": labels,
+               "mask": mask, "state": {"seed": seed, "step": step + 1}}
+        step += 1

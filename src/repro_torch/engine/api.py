@@ -17,7 +17,13 @@ from repro_torch.core.coir import COIR
 from repro_torch.core.sparse_conv import SparseConvParams, masked_batchnorm_relu
 from repro_torch.device import require_device
 from repro_torch.engine.backends import AUTO, DEFAULT_REGISTRY, BackendRegistry
-from repro_torch.engine.plan import REFERENCE_DISPATCH, ConvPlan, ScenePlan
+from repro_torch.engine.plan import (
+    REFERENCE_DISPATCH,
+    ConvPlan,
+    LevelPlan,
+    ScenePlan,
+    TileArrays,
+)
 
 
 def available_backends(registry: BackendRegistry = DEFAULT_REGISTRY
@@ -52,11 +58,65 @@ def sparse_conv(
     return registry.get(name).run(x, params, plan, use_kernel=use_kernel)
 
 
-def conv_block(x, mask, plan: ConvPlan, block, **conv_kw):
+def conv_block(x, mask, plan: ConvPlan, block, *, n_scenes: int = 1,
+               **conv_kw):
     """Conv + masked BN + ReLU, the SCN building block (``block`` is a
-    ``models.scn.ConvBlock``)."""
+    ``models.scn.ConvBlock``); ``n_scenes`` scenes of equal capacity one
+    after the other are normalised each by its own statistics."""
     y = sparse_conv(x, block.conv.params, plan, **conv_kw)
-    return masked_batchnorm_relu(y, mask, block.bn_scale, block.bn_offset)
+    return masked_batchnorm_relu(y, mask, block.bn_scale, block.bn_offset,
+                                 n_scenes=n_scenes)
+
+
+def _scene_offsets(x: torch.Tensor, n_scenes: int, cap: int) -> torch.Tensor:
+    """``i * cap`` for each row of ``x`` that belongs to scene ``i`` (its
+    rows split evenly among the scenes), shaped to broadcast over x."""
+    per = max(x.shape[0] // n_scenes, 1)
+    off = torch.arange(x.shape[0], device=x.device, dtype=x.dtype) // per * cap
+    return off.view(-1, *([1] * (x.dim() - 1)))
+
+
+def _wave_conv(cp: ConvPlan | None, n: int, cap_in: int,
+               cap_out: int) -> ConvPlan | None:
+    """One conv's tables with scene i's rows moved by i*cap: partner and
+    input rows where they name a row (>= 0), output rows too, and every
+    tile pad (the scene's trash row ``cap_out``) to the wave's one trash
+    row ``n * cap_out``, so no scene's pad lands in the next scene."""
+    if cp is None:
+        return None
+    idx = cp.coir.indices
+    idx = torch.where(idx >= 0, idx + _scene_offsets(idx, n, cap_in), idx)
+    tiles = cp.tiles
+    if tiles is not None:
+        out_rows, in_rows = tiles.out_rows, tiles.in_rows
+        real = (out_rows >= 0) & (out_rows < cap_out)
+        out_rows = torch.where(
+            real, out_rows + _scene_offsets(out_rows, n, cap_out), n * cap_out)
+        in_rows = torch.where(in_rows >= 0,
+                              in_rows + _scene_offsets(in_rows, n, cap_in),
+                              in_rows)
+        tiles = TileArrays(out_rows, in_rows, tiles.local_idx,
+                           tiles.pair_counts)
+    return ConvPlan(COIR(idx, cp.coir.bitmask, cp.coir.mask), tiles,
+                    cp.dispatch)
+
+
+def _wave_rows(plan: ScenePlan) -> ScenePlan:
+    """A wave plan's tables with each scene's rows at its place in the
+    wave (``_wave_conv``); a one-scene plan as it is."""
+    n = plan.n_scenes
+    if n == 1:
+        return plan
+    levels = []
+    for li, lvl in enumerate(plan.levels):
+        cap = lvl.mask.shape[0] // n
+        coarse = (plan.levels[li + 1].mask.shape[0] // n
+                  if lvl.down is not None else 0)
+        levels.append(LevelPlan(
+            lvl.coords, lvl.mask, _wave_conv(lvl.sub, n, cap, cap),
+            _wave_conv(lvl.down, n, cap, coarse),
+            _wave_conv(lvl.up, n, coarse, cap)))
+    return ScenePlan(tuple(levels), plan.stats, n)
 
 
 def apply_unet(
@@ -73,7 +133,9 @@ def apply_unet(
 
     ``model`` is a ``models.scn.SCNUNet``. ``feats`` (V, C_in) is copied to
     ``device`` if it lies elsewhere; the model and the plan must already be
-    there (``upload_scene_plan(plan, device)``).
+    there (``upload_scene_plan(plan, device)``). A wave plan of B scenes
+    takes their features one after the other (B x capacity rows) and gives
+    their logits so.
     """
     dev = require_device(device)
     if plan.device is None or plan.device.type != dev.type:
@@ -82,12 +144,14 @@ def apply_unet(
     if model.head.w.device.type != dev.type:
         raise ValueError(f"model is on {model.head.w.device}, not {dev}")
     feats = torch.as_tensor(feats, dtype=model.head.w.dtype, device=dev)
+    plan = _wave_rows(plan)
     kw = dict(backend=backend, registry=registry, use_kernel=use_kernel)
+    bn = dict(n_scenes=plan.n_scenes)
     x = sparse_conv(feats, model.stem.params, plan.levels[0].sub, **kw)
     skips = []
     for lvl, p in zip(plan.levels, model.levels):
         for blk in p.enc:
-            x = conv_block(x, lvl.mask, lvl.sub, blk, **kw)
+            x = conv_block(x, lvl.mask, lvl.sub, blk, **bn, **kw)
         if lvl.down is not None:
             skips.append(x)
             x = sparse_conv(x, p.down.params, lvl.down, **kw)
@@ -96,5 +160,5 @@ def apply_unet(
         up = sparse_conv(x, p.up.params, lvl.up, **kw)
         x = torch.cat([skips[li], up], dim=-1)
         for blk in p.dec:
-            x = conv_block(x, lvl.mask, lvl.sub, blk, **kw)
+            x = conv_block(x, lvl.mask, lvl.sub, blk, **bn, **kw)
     return x @ model.head.w + model.head.b

@@ -1,22 +1,40 @@
-"""Scene plans (port of ``repro.engine.plan``, main-path subset).
+"""Scene plans: the engine's unit of metadata building and caching (port
+of ``repro.engine.plan``; streaming plans come with slice 6).
 
 A ``ScenePlan`` bundles everything the paper builds before running a layer,
 per input scene: per-level COIR metadata (the AdMAC pass), the SOAR row
 order, the SPADE-selected dataflow as a per-conv ``Dispatch``, and the tile
 tables the fused SSpNNA kernel reads. ``build_scene_plan_host`` builds it in
-numpy on the host (adaptive mode: SPADE explores each level on this scene's
-own sparsity attributes); ``upload_scene_plan`` copies its tables to the
-device as torch tensors. ``conv_plan_for_layer`` builds a tiled plan for
-one standalone conv site.
+numpy on the host; ``upload_scene_plan`` copies its tables to the device as
+torch tensors. ``conv_plan_for_layer`` builds a tiled plan for one
+standalone conv site.
+
+Two plan-building modes:
+
+* **adaptive** (``spec=None``): SPADE explores each level on this scene's
+  own sparsity attributes. Tile counts match the scene, so plans of two
+  scenes may differ in shape.
+* **pinned** (``spec=build_plan_spec(...)``): dataflow decisions and tile
+  budgets are frozen from representative scenes (the offline flow, §V-C).
+  Every plan built from one spec has the same tables' shapes, which is what
+  ``serving.scene_engine`` batches through one CUDA graph per capacity
+  bucket (``SignatureFamily``).
+
+``PlanCache`` keys plans by scene content, config and build mode, builds
+each at most once across threads, and memoizes its device upload.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import hashlib
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass, replace
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.analysis.runtime import ordered_lock
 from repro_torch.core import spade
 from repro_torch.core.coir import COIR
 from repro_torch.core.hashgrid import kernel_offsets
@@ -26,19 +44,38 @@ from repro_torch.core.host_meta import (
     transposed_coir_np,
 )
 from repro_torch.core.soar import raster_order, soar_order
-from repro_torch.core.tiles import build_tile_plan, dma_tile_tables
+from repro_torch.core.tiles import build_tile_plan, dma_tile_tables, max_tiles
 from repro_torch.device import host_array, require_device
-from repro_torch.sparse.tensor import SparseVoxelTensor
+from repro_torch.sparse.tensor import SparseVoxelTensor, compact_to_capacity
 
 REFERENCE = "reference"
 SSPNNA = "sspnna"
 
 _K_SUB = 27  # submanifold 3^3 kernel volume
 
+# Layout version of the plan's array leaves, mixed into every PlanCache key
+# so a plan cached under an older table layout is never served to a kernel
+# that reads the new one (the JAX package's number; the port's tables have
+# its layout).
+_PLAN_VERSION = 4
+
+_SLICE_7 = "ROADMAP.md, queue 1, slice 7 (self-tuning and hardening)"
+
+
+def _fault_injector():
+    """The ambient serving-layer fault injector: none until the port
+    carries ``serving.faults``' injector (slice 7)."""
+    return None
+
 
 @dataclass(frozen=True)
 class Dispatch:
-    """Static per-conv execution decision."""
+    """Static per-conv execution decision. ``n_tiles`` is the tile budget:
+    a pinned spec's budget is honoured when a plan is built
+    (``build_tile_plan(n_tiles=)``), and a scene that needs more tiles goes
+    to ``reference`` (``info["tile_overflow"]``); an adaptive plan records
+    the tiles it got. The JAX package's ``block_n`` has no counterpart: the
+    CUDA kernel picks its own N split."""
 
     backend: str = REFERENCE
     flavor: str = "CIRF"
@@ -84,10 +121,14 @@ class LevelPlan(NamedTuple):
 @dataclass
 class ScenePlan:
     """Per-scene execution plan. ``stats`` holds host-only diagnostics (ARF,
-    chosen dataflows) per level."""
+    chosen dataflows) per level. ``n_scenes > 1`` marks a wave plan
+    (``stack_plans``): the tables of ``n_scenes`` plans of one
+    signature, concatenated along their rows, each scene's as it was
+    built."""
 
     levels: tuple[LevelPlan, ...]
     stats: list[dict] | None = None
+    n_scenes: int = 1
 
     @property
     def n_levels(self) -> int:
@@ -98,6 +139,268 @@ class ScenePlan:
         """Device of the plan's tables; None for a host (numpy) plan."""
         mask = self.levels[0].mask
         return mask.device if isinstance(mask, torch.Tensor) else None
+
+
+@dataclass(frozen=True)
+class PlanSpec:
+    """Pinned per-level dispatch decisions: every plan built from one spec
+    has the same dispatches and tables' shapes (one CUDA graph)."""
+
+    levels: tuple[Dispatch, ...]
+
+
+@dataclass(frozen=True)
+class SignatureFamily:
+    """A small family of pinned signatures: voxel-capacity buckets.
+
+    Single-signature serving pads every scene to one capacity; a family
+    keeps a handful of capacity tiers chosen from observed request sizes,
+    each tier its own pinned ``PlanSpec`` (``None``: reference plans at
+    that capacity). The scene engine captures one CUDA graph per bucket on
+    first use, so mixed traffic captures at most ``n_buckets``.
+
+    ``capacities`` must be ascending; ``specs`` pairs each capacity with
+    its spec.
+    """
+
+    capacities: tuple[int, ...]
+    specs: tuple[PlanSpec | None, ...] = ()
+
+    def __post_init__(self):
+        if not self.capacities:
+            raise ValueError("SignatureFamily needs at least one capacity")
+        if list(self.capacities) != sorted(set(self.capacities)):
+            raise ValueError(
+                f"capacities must be ascending+unique, got {self.capacities}")
+        if not self.specs:
+            object.__setattr__(
+                self, "specs", (None,) * len(self.capacities))
+        if len(self.specs) != len(self.capacities):
+            raise ValueError(
+                f"{len(self.specs)} specs for {len(self.capacities)} buckets")
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.capacities)
+
+    @property
+    def max_capacity(self) -> int:
+        return self.capacities[-1]
+
+    def bucket_for(self, n_voxels: int) -> int | None:
+        """Smallest bucket capacity fitting ``n_voxels`` active voxels;
+        None when the scene exceeds every bucket (callers shed it)."""
+        for cap in self.capacities:
+            if n_voxels <= cap:
+                return cap
+        return None
+
+    def spec_for(self, capacity: int) -> PlanSpec | None:
+        return self.specs[self.capacities.index(capacity)]
+
+
+def choose_buckets(sizes, max_buckets: int = 4, *,
+                   quantum: int = 64) -> tuple[int, ...]:
+    """Capacity tiers from observed request sizes (active-voxel counts):
+    quantile cuts over the observed distribution, rounded up to
+    ``quantum`` multiples and deduplicated; the top tier covers the largest
+    observed scene. Ascending, at most ``max_buckets`` of them."""
+    sizes = [int(s) for s in sizes]
+    if not sizes:
+        raise ValueError("choose_buckets needs at least one observed size")
+    if max_buckets < 1:
+        raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
+    arr = np.sort(np.asarray(sizes))
+    qs = np.linspace(0.0, 1.0, max_buckets + 1)[1:]
+    caps = sorted({
+        int(np.ceil(float(np.quantile(arr, q)) / quantum)) * quantum
+        for q in qs})
+    return tuple(caps)
+
+
+def build_signature_family(
+    scenes: list[SparseVoxelTensor],
+    cfg,
+    *,
+    max_buckets: int = 4,
+    quantum: int = 64,
+    pin_specs: bool = True,
+    **spec_kw,
+) -> SignatureFamily:
+    """Freeze a bucket family from representative scenes: buckets from
+    their active-voxel counts (``choose_buckets``); with ``pin_specs`` each
+    bucket gets the ``build_plan_spec`` of the scenes that fit it,
+    compacted to its capacity (``spec_kw`` goes there). A bucket no scene
+    fits keeps ``spec=None``."""
+    sizes = [int(np.asarray(t.mask).sum()) for t in scenes]
+    caps = choose_buckets(sizes, max_buckets, quantum=quantum)
+    specs: list[PlanSpec | None] = []
+    for cap in caps:
+        reps = [compact_to_capacity(t, cap)[0]
+                for t, n in zip(scenes, sizes) if n <= cap]
+        if pin_specs and reps:
+            specs.append(build_plan_spec(reps, replace(cfg, capacity=cap),
+                                         **spec_kw))
+        else:
+            specs.append(None)
+    return SignatureFamily(caps, tuple(specs))
+
+
+# ---------------------------------------------------------------------------
+# Scene keys + plan cache
+# ---------------------------------------------------------------------------
+
+def scene_key(t: SparseVoxelTensor, tag: str = "") -> str:
+    """Content hash of a scene's active geometry (features do not change
+    the plan, so they are left out)."""
+    h = hashlib.sha1()
+    h.update(host_array(t.coords).tobytes())
+    h.update(host_array(t.mask).tobytes())
+    h.update(tag.encode())
+    return h.hexdigest()
+
+
+class PlanCache:
+    """Thread-safe LRU cache of ScenePlans keyed by scene content + config.
+
+    Concurrent ``get_or_build`` calls for one scene coalesce: the first
+    caller builds (outside the lock), the others wait on a per-key event and
+    get the same plan object. Each entry holds the host plan (numpy leaves,
+    what planner threads produce) and its device uploads, made on first
+    request and memoized per device: ``device=False`` returns the host
+    plan, ``device=True`` the upload to the card, ``device=<a device>`` the
+    upload there.
+
+    If a build raises, the key is released and every waiter coalesced on it
+    raises the builder's exception; a later caller builds afresh, so a
+    failing scene never wedges the cache. ``max_entries`` (default
+    ``capacity``) bounds the entries, host and device copies together, with
+    LRU eviction.
+    """
+
+    def __init__(self, capacity: int = 128, *,
+                 max_entries: int | None = None):
+        self.capacity = capacity
+        self.max_entries = capacity if max_entries is None else int(max_entries)
+        if self.max_entries < 1:
+            raise ValueError(f"max_entries must be >= 1, got {max_entries}")
+        self._plans: OrderedDict[str, dict] = OrderedDict()
+        # key -> {"ev": Event, "error": BaseException | None}; the error is
+        # set before the event so coalesced waiters see the failure
+        self._building: dict[str, dict] = {}
+        self._lock = ordered_lock("plan_cache")
+        self.hits = 0
+        self.misses = 0
+        self.invalidations = 0
+
+    def invalidate(self) -> int:
+        """Drop every cached entry (in-flight builds insert theirs when they
+        land); returns the number dropped."""
+        with self._lock:
+            n = len(self._plans)
+            self._plans.clear()
+            self.invalidations += 1
+        return n
+
+    @staticmethod
+    def _new_entry(host: ScenePlan) -> dict:
+        return {"host": host, "device": {},
+                "dev_lock": ordered_lock("plan_cache.dev")}
+
+    @staticmethod
+    def _resolve(entry: dict, device) -> ScenePlan:
+        """The host plan, or its memoized upload (made outside the global
+        lock, so planner threads never stall behind an upload)."""
+        if device is False:
+            return entry["host"]
+        dev = require_device("cuda" if device is True else device)
+        uploads = entry["device"]
+        if str(dev) not in uploads:
+            with entry["dev_lock"]:
+                if str(dev) not in uploads:
+                    uploads[str(dev)] = upload_scene_plan(entry["host"], dev)
+        return uploads[str(dev)]
+
+    def key_for(self, t: SparseVoxelTensor, cfg, *, topology: str | None = None,
+                **build_kw) -> str:
+        """Cache key of scene ``t`` under ``cfg`` and the build mode: an
+        O(V) content hash (hot paths compute it once and pass ``key=``),
+        with the table-layout version and ``topology``
+        (``ExecutionContext.topology_key()``) mixed in."""
+        tag = (f"v{_PLAN_VERSION}|top={topology}|{cfg!r}|"
+               f"{sorted(build_kw.items())!r}")
+        return scene_key(t, tag)
+
+    def get_or_build(self, t: SparseVoxelTensor, cfg, *,
+                     device: bool | str | torch.device = True,
+                     key: str | None = None, topology: str | None = None,
+                     builder=None, **build_kw) -> ScenePlan:
+        """The plan of scene ``t`` under ``cfg``, built at most once across
+        threads. ``key`` skips re-hashing (it must equal
+        ``key_for(t, cfg, topology=..., **build_kw)``); ``builder`` swaps
+        the host builder (default ``build_scene_plan_host``)."""
+        if builder is None:
+            builder = build_scene_plan_host
+        if key is None:
+            key = self.key_for(t, cfg, topology=topology, **build_kw)
+        while True:
+            with self._lock:
+                entry = self._plans.get(key)
+                if entry is not None:
+                    self.hits += 1
+                    self._plans.move_to_end(key)
+                else:
+                    rec = self._building.get(key)
+                    if rec is None:  # this thread builds
+                        rec = {"ev": threading.Event(), "error": None}
+                        self._building[key] = rec
+                        break
+            if entry is not None:
+                return self._resolve(entry, device)
+            rec["ev"].wait()  # another thread is building this plan
+            if rec["error"] is not None:
+                raise rec["error"]
+            # the build landed: loop and read the cache
+        try:
+            inj = _fault_injector()
+            if inj is not None:
+                inj.maybe_fail("plan_build", key=key)
+            host = builder(t, cfg, **build_kw)
+        except BaseException as e:
+            with self._lock:
+                self._building.pop(key, None)
+            rec["error"] = e
+            rec["ev"].set()
+            raise
+        entry = self._new_entry(host)
+        with self._lock:
+            self.misses += 1
+            self._plans[key] = entry
+            while len(self._plans) > self.max_entries:
+                self._plans.popitem(last=False)
+            self._building.pop(key, None)
+            rec["ev"].set()
+        return self._resolve(entry, device)
+
+    def adopt(self, key: str, host_plan: ScenePlan, *,
+              device: bool | str | torch.device = True) -> ScenePlan:
+        """The entry at ``key`` for an already-built host plan, re-inserting
+        ``host_plan`` if LRU pressure evicted it: never builds, never
+        hashes, never counts. The dispatch stage's path: the plan stage
+        built (and counted) the plan, dispatch needs its upload."""
+        with self._lock:
+            entry = self._plans.get(key)
+            if entry is not None:
+                self._plans.move_to_end(key)
+            else:
+                entry = self._new_entry(host_plan)
+                self._plans[key] = entry
+                while len(self._plans) > self.max_entries:
+                    self._plans.popitem(last=False)
+        return self._resolve(entry, device)
+
+    def __len__(self) -> int:
+        return len(self._plans)
 
 
 def level_geometry(t: SparseVoxelTensor, cfg) -> list[tuple]:
@@ -153,13 +456,80 @@ def _layer_spec(name: str, v: int, c: int) -> spade.LayerSpec:
     return spade.LayerSpec(name, v, v, _K_SUB, c, c, 2)
 
 
+def build_plan_spec(
+    scenes: list[SparseVoxelTensor],
+    cfg,
+    *,
+    mem_budget: int = 64 * 1024,
+    order: str = "soar",
+    soar_chunk: int = 512,
+    tile_margin: float = 2.0,
+    tune_block_n=None,
+    autotune=None,
+) -> PlanSpec:
+    """Freeze per-level dispatch decisions from representative scenes.
+
+    The offline-SPADE flow (§V-C): extract sparsity attributes per scene and
+    level, aggregate them into meta-attributes (MSA), run the design-space
+    sweep once at ``cfg.capacity`` rows, and pin the winning dataflow. Tile
+    budgets take the analytic bound capped at ``tile_margin`` times the
+    worst observed count, so plans keep their shapes without drowning in
+    padding tiles. ``tune_block_n`` and ``autotune`` come with slice 7 and
+    raise.
+    """
+    if tune_block_n is not None or autotune is not None:
+        raise NotImplementedError(
+            f"tune_block_n= and autotune= come with {_SLICE_7}")
+    offs3 = kernel_offsets(3)
+    n_levels = len(cfg.widths)
+    per_level: list[list[spade.SparsityAttributes]] = [[] for _ in range(n_levels)]
+    observed_tiles = [0] * n_levels
+    geo_attrs = []
+    for t in scenes:
+        rows = []
+        for li, (coords, mask, res) in enumerate(level_geometry(t, cfg)):
+            coir = build_cirf_np(coords, mask, coords, mask, offs3, res)
+            ordering = _order_rows(coir, coords, mask, order, soar_chunk)
+            per_level[li].append(spade.extract_attributes(
+                np.asarray(coir.indices), np.asarray(mask), ordering))
+            rows.append((coir, ordering))
+        geo_attrs.append(rows)
+
+    dispatches = []
+    for li in range(n_levels):
+        msa = spade.meta_attributes(per_level[li])
+        layer = _layer_spec(f"level{li}", cfg.capacity, cfg.widths[li])
+        df = spade.explore(layer, {"CIRF": msa, "CORF": msa}, mem_budget)
+        d = dispatch_from_dataflow(df, msa, cfg.capacity)
+        if d.backend == SSPNNA:
+            # worst observed tile count across the representative scenes
+            for rows in geo_attrs:
+                coir, ordering = rows[li]
+                tp = build_tile_plan(
+                    np.asarray(coir.indices), ordering, d.delta_o, d.delta_i)
+                observed_tiles[li] = max(observed_tiles[li], tp.n_tiles)
+            bound = max_tiles(cfg.capacity, d.delta_o, d.delta_i, _K_SUB)
+            n_tiles = min(bound,
+                          int(np.ceil(tile_margin * observed_tiles[li])) + 2)
+            d = replace(d, n_tiles=n_tiles)
+        dispatches.append(d)
+    return PlanSpec(tuple(dispatches))
+
+
 def _tile_arrays(cirf_indices, ordering, dispatch: Dispatch,
                  n_out: int) -> TileArrays | None:
-    """Fixed-shape tile metadata (kernel layout) for one conv; None when the
-    plan needs shared-output-row tiles, which the fused kernel cannot serve
-    (the caller then dispatches the conv to reference)."""
-    tp = build_tile_plan(np.asarray(cirf_indices), ordering, dispatch.delta_o,
-                         dispatch.delta_i)
+    """Fixed-shape tile metadata (kernel layout) for one conv, padded to
+    the dispatch's tile budget when it has one (``n_tiles``); None when the
+    scene needs more tiles than the budget, or shared-output-row tiles,
+    which the fused kernel cannot serve (the caller then dispatches the
+    conv to reference)."""
+    try:
+        tp = build_tile_plan(
+            np.asarray(cirf_indices), ordering, dispatch.delta_o,
+            dispatch.delta_i,
+            n_tiles=dispatch.n_tiles if dispatch.n_tiles else None)
+    except ValueError:  # over the budget
+        return None
     if tp.n_row_splits:  # the kernel's store overwrites; can't share rows
         return None
     dma = dma_tile_tables(tp, n_out)
@@ -174,42 +544,54 @@ def _assemble_level(
     li: int,
     cfg,
     *,
+    spec: PlanSpec | None,
     plan_tiles: bool,
     mem_budget: int,
     order: str,
     soar_chunk: int,
 ) -> tuple[ConvPlan, dict]:
-    """Dispatch, ordering and tile assembly for one level's submanifold conv."""
+    """Dispatch, ordering and tile assembly for one level's submanifold
+    conv: the spec's pinned decision, or SPADE on this scene's own
+    attributes."""
     n_active = int(np.asarray(mask).sum())
     info: dict = {"level": li, "n_active": n_active}
     dispatch = REFERENCE_DISPATCH
     tiles = None
     if plan_tiles and n_active > 0:
-        ordering = _order_rows(sub_coir, coords, mask, order, soar_chunk)
-        attrs = spade.extract_attributes(
-            np.asarray(sub_coir.indices), np.asarray(mask), ordering)
-        layer = _layer_spec(f"level{li}", n_active, cfg.widths[li])
-        df = spade.explore(layer, {"CIRF": attrs, "CORF": attrs}, mem_budget)
-        dispatch = dispatch_from_dataflow(df, attrs, n_active)
-        info["arf"] = float(attrs.arf_avg[0])
-        info["da_elems"] = df.da_elems
+        if spec is not None:
+            dispatch = spec.levels[li]
+        else:
+            ordering = _order_rows(sub_coir, coords, mask, order, soar_chunk)
+            attrs = spade.extract_attributes(
+                np.asarray(sub_coir.indices), np.asarray(mask), ordering)
+            layer = _layer_spec(f"level{li}", n_active, cfg.widths[li])
+            df = spade.explore(layer, {"CIRF": attrs, "CORF": attrs},
+                               mem_budget)
+            dispatch = dispatch_from_dataflow(df, attrs, n_active)
+            info["arf"] = float(attrs.arf_avg[0])
+            info["da_elems"] = df.da_elems
         if dispatch.backend == SSPNNA:
+            if spec is not None:
+                ordering = _order_rows(sub_coir, coords, mask, order,
+                                       soar_chunk)
             tiles = _tile_arrays(sub_coir.indices, ordering, dispatch,
                                  int(np.asarray(mask).shape[0]))
-            if tiles is None:  # plane-split tiles: coarse dispatch
+            if tiles is None:  # over the tile budget, or plane-split tiles
                 info["tile_overflow"] = True
                 dispatch = REFERENCE_DISPATCH
-            else:  # record the realized tile count
-                dispatch = Dispatch(
-                    dispatch.backend, dispatch.flavor, dispatch.walk,
-                    dispatch.delta_o, dispatch.delta_i,
-                    int(tiles.out_rows.shape[0]))
+            elif not dispatch.n_tiles:  # adaptive: record the tile count
+                dispatch = replace(dispatch,
+                                   n_tiles=int(tiles.out_rows.shape[0]))
     info["dispatch"] = dispatch
     return ConvPlan(sub_coir, tiles, dispatch), info
 
 
-def _build_scene_plan(t, cfg, *, plan_tiles, mem_budget, order,
+def _build_scene_plan(t, cfg, *, spec, plan_tiles, mem_budget, order,
                       soar_chunk) -> ScenePlan:
+    if spec is not None and len(spec.levels) != len(cfg.widths):
+        raise ValueError(
+            f"spec has {len(spec.levels)} levels but cfg has "
+            f"{len(cfg.widths)}: was it built from another config?")
     offs2 = kernel_offsets(2, centered=False)
     offs3 = kernel_offsets(3)
     geometry = level_geometry(t, cfg)
@@ -228,7 +610,7 @@ def _build_scene_plan(t, cfg, *, plan_tiles, mem_budget, order,
             down = ConvPlan(down_coir)
             up = ConvPlan(up_coir)
         sub, info = _assemble_level(
-            sub_coir, coords, mask, li, cfg, plan_tiles=plan_tiles,
+            sub_coir, coords, mask, li, cfg, spec=spec, plan_tiles=plan_tiles,
             mem_budget=mem_budget, order=order, soar_chunk=soar_chunk)
         stats.append(info)
         levels.append(LevelPlan(coords, mask, sub, down, up))
@@ -288,27 +670,107 @@ def _map_leaves(plan: ScenePlan, convert) -> ScenePlan:
         LevelPlan(convert(lvl.coords), convert(lvl.mask), conv(lvl.sub),
                   conv(lvl.down), conv(lvl.up))
         for lvl in plan.levels)
-    return ScenePlan(levels, plan.stats)
+    return ScenePlan(levels, plan.stats, plan.n_scenes)
+
+
+def plan_leaves(plan: ScenePlan) -> list:
+    """The plan's array leaves in ``_map_leaves``' order."""
+    out: list = []
+    _map_leaves(plan, lambda x: out.append(x) or x)
+    return out
+
+
+def plan_signature(plan: ScenePlan) -> tuple:
+    """What a compiled forward depends on: the scene count, every conv's
+    dispatch (None for a missing conv, and whether it has tiles), and each
+    leaf's shape and dtype. Plans of one pinned spec and capacity share
+    it."""
+    convs = tuple(
+        (cp.dispatch, cp.tiles is not None) if cp is not None else None
+        for lvl in plan.levels for cp in (lvl.sub, lvl.down, lvl.up))
+    shapes = tuple((tuple(x.shape), x.dtype) for x in plan_leaves(plan))
+    return plan.n_scenes, convs, shapes
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 tables (the host bitmask) viewed as int32: the same bits, in a
+    dtype every device op takes."""
+    return x.view(torch.int32) if x.dtype == torch.uint32 else x
+
+
+def stack_plans(plans: list[ScenePlan], out: ScenePlan | None = None
+                ) -> ScenePlan:
+    """A wave plan of ``len(plans)`` uploaded plans of one signature: each
+    table concatenated along its rows, every scene's as it was built
+    (``engine.api.apply_unet`` moves each scene's rows to its place in the
+    wave). With ``out`` (a wave plan of the same signature) the tables are
+    written into its leaves in place, which is what a captured CUDA graph
+    reads; it is returned."""
+    sig = plan_signature(plans[0])
+    if any(plan_signature(p) != sig for p in plans[1:]):
+        raise ValueError("stack_plans needs plans of one signature")
+    columns = [[_as_int32(x) for x in col]
+               for col in zip(*(plan_leaves(p) for p in plans))]
+    if out is None:
+        it = iter([torch.cat(col).view(first.dtype) for col, first
+                   in zip(columns, plan_leaves(plans[0]))])
+        return ScenePlan(_map_leaves(plans[0], lambda x: next(it)).levels,
+                         None, len(plans))
+    if (out.n_scenes != len(plans)
+            or plan_signature(out)[1] != sig[1]):
+        raise ValueError("out is not a wave plan of these plans' signature")
+    for col, dst in zip(columns, plan_leaves(out), strict=True):
+        dst = _as_int32(dst)
+        if dst.shape != (sum(x.shape[0] for x in col),) + col[0].shape[1:]:
+            raise ValueError(f"out's table {tuple(dst.shape)} does not hold "
+                             f"{len(col)} of {tuple(col[0].shape)}")
+        torch.cat(col, out=dst)
+    return out
 
 
 def build_scene_plan_host(
     t: SparseVoxelTensor,
     cfg,
     *,
+    spec: PlanSpec | None = None,
     plan_tiles: bool = True,
     mem_budget: int = 64 * 1024,
     order: str = "soar",
     soar_chunk: int = 512,
+    autotune=None,
 ) -> ScenePlan:
-    """AdMAC metadata + SOAR ordering + SPADE selection + tile tables for
-    one scene, all leaves numpy. Pair with ``upload_scene_plan``.
+    """AdMAC metadata + SOAR ordering + SPADE selection (or the ``spec``'s
+    pinned decisions) + tile tables for one scene, all leaves numpy. Pair
+    with ``upload_scene_plan``; safe to call from planner threads.
 
     ``plan_tiles=False`` skips ordering and attribute extraction and gives
-    an all-reference plan."""
-    plan = _build_scene_plan(t, cfg, plan_tiles=plan_tiles,
+    an all-reference plan. ``autotune`` (a measured cost table) comes with
+    slice 7 and raises."""
+    if autotune is not None:
+        raise NotImplementedError(f"autotune= comes with {_SLICE_7}")
+    plan = _build_scene_plan(t, cfg, spec=spec, plan_tiles=plan_tiles,
                              mem_budget=mem_budget, order=order,
                              soar_chunk=soar_chunk)
     return _map_leaves(plan, np.asarray)
+
+
+def build_scene_plan(
+    t: SparseVoxelTensor,
+    cfg,
+    *,
+    spec: PlanSpec | None = None,
+    plan_tiles: bool = True,
+    mem_budget: int = 64 * 1024,
+    order: str = "soar",
+    soar_chunk: int = 512,
+    autotune=None,
+    device: str | torch.device = "cuda",
+) -> ScenePlan:
+    """One AdMAC + SOAR + SPADE pass -> a ScenePlan on ``device``:
+    ``build_scene_plan_host`` then ``upload_scene_plan``."""
+    return upload_scene_plan(build_scene_plan_host(
+        t, cfg, spec=spec, plan_tiles=plan_tiles, mem_budget=mem_budget,
+        order=order, soar_chunk=soar_chunk, autotune=autotune), device)
 
 
 def upload_scene_plan(plan: ScenePlan, device: str | torch.device = "cuda"

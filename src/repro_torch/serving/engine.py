@@ -15,7 +15,17 @@ host-side driver, built on the port's ``serving.scheduler.WaveScheduler``:
 
 ``sync=False`` pipelines the stages (wave *k+1* packs while wave *k*
 decodes); the tokens are identical in both modes because EOS handling
-happens at drain time. Nothing is compiled: each step runs eagerly.
+happens at drain time.
+
+On the card the decode steps run as CUDA graphs, the counterpart of the JAX
+package's jitted step: one graph per step index, captured once per engine
+on its first wave (``serving.graphs``) and replayed by every wave after.
+The cache position is a Python int, so each graph bakes in its own; prompt
+length, batch and ``max_new`` are fixed per engine, so the graphs hold for
+every wave. The graphs read and write buffers the engine owns: a static
+cache (each wave's prefill cache is copied into it), a ``(B, 1)`` token
+input that each graph reads and overwrites with its token, and the
+``(B, max_new)`` token block. On the CPU every step runs eagerly.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_device
 from repro_torch.models.transformer import check_supported, decode_step, forward
 from repro_torch.serving.api import AdmissionPolicy, ServeRequest, ServingBase
+from repro_torch.serving.graphs import Graphs
 from repro_torch.serving.scheduler import WaveScheduler
 
 
@@ -67,7 +78,10 @@ class Engine(ServingBase):
     """Host-side continuous-batching driver (fixed shapes) on one device.
 
     ``params`` come from ``models.transformer.init_lm`` or
-    ``params_from_jax`` and must lie on ``device``.
+    ``params_from_jax`` and must lie on ``device``. On a CUDA device
+    ``graphs`` holds the decode-step graphs (empty until the first wave);
+    a wave's ``WaveStats.notes["graph_launches"]`` counts the kernel
+    launches its replays ran, which no wrapper's counter sees.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch: int, prompt_len: int,
@@ -86,6 +100,9 @@ class Engine(ServingBase):
         self.eos = eos
         self.prefill = make_prefill(cfg, cache_pad=max_new)
         self.step = make_serve_step(cfg)
+        self.graphs = Graphs(self.device) if self.device.type == "cuda" else None
+        # the graphs' buffers: cache, token input, token block (first wave)
+        self._cache = self._tok = self._out = None
         self.scheduler = WaveScheduler(
             batch=batch, plan=self._plan_stage, dispatch=self._dispatch_stage,
             drain=self._drain_stage, sync=sync, depth=depth,
@@ -104,7 +121,6 @@ class Engine(ServingBase):
     @torch.inference_mode()
     def _dispatch_stage(self, reqs: list[Request], rows,
                         stats) -> torch.Tensor:
-        del stats  # the LM engine records nothing beyond the shared timings
         if self.max_new < 1:
             return torch.zeros((self.batch, 0), dtype=torch.int32,
                                device=self.device)
@@ -113,16 +129,33 @@ class Engine(ServingBase):
             toks[i] = row
         last_logits, cache = self.prefill(
             self.params, torch.from_numpy(toks).to(self.device))
-        tok = torch.argmax(last_logits[:, : self.cfg.vocab_size], -1)
-        tok = tok.to(torch.int32)[:, None]
         # early EOS exit needs a host sync per step, which would stall the
         # async pipeline — only the blocking mode pays for it
         check_eos = self.eos is not None and self.scheduler.running_sync
-        done = [False] * len(reqs)
+        return self.decode(last_logits, cache,
+                           stop_rows=len(reqs) if check_eos else 0,
+                           notes=stats.notes)
+
+    @torch.inference_mode()
+    def decode(self, last_logits, cache, *, stop_rows: int = 0,
+               notes: dict | None = None) -> torch.Tensor:
+        """Greedy tokens ``(batch, <= max_new)`` on the device after a
+        prefill's ``(last_logits, cache)``: the prefill's token, then
+        ``max_new - 1`` decode steps, as graph replays on the card and eager
+        steps on the CPU. With ``stop_rows`` the steps stop early once each
+        of the first ``stop_rows`` rows has emitted ``eos`` (a host read per
+        step). On the card ``notes["graph_launches"]`` receives the kernel
+        launches the replays ran."""
+        tok = torch.argmax(last_logits[:, : self.cfg.vocab_size], -1)
+        tok = tok.to(torch.int32)[:, None]
+        if self.graphs is not None:
+            return self._decode_graphs(tok, cache, stop_rows,
+                                       {} if notes is None else notes)
+        done = [False] * stop_rows
         emitted = [tok]
         for _ in range(self.max_new - 1):
-            if check_eos:
-                for i in range(len(reqs)):
+            if stop_rows:
+                for i in range(stop_rows):
                     done[i] = done[i] or int(tok[i, 0]) == self.eos
                 if all(done):
                     break
@@ -130,6 +163,57 @@ class Engine(ServingBase):
             tok = nxt[:, None]
             emitted.append(tok)
         return torch.cat(emitted, dim=1)  # (batch, <=max_new), on the device
+
+    def _step_graph(self, i: int) -> None:
+        """Decode step ``i`` on the engine's buffers: read the token input,
+        write the next token into it and into column ``i + 1`` of the token
+        block (what graph ``i`` records)."""
+        cache = {"layers": self._cache["layers"],
+                 "pos": self.prompt_len + i}
+        nxt, _, _ = self.step(self.params, self._tok, cache)
+        self._out[:, i + 1].copy_(nxt)
+        self._tok.copy_(nxt[:, None])
+
+    def _decode_graphs(self, tok, cache, stop_rows: int,
+                       notes: dict) -> torch.Tensor:
+        """The decode steps as graph replays (captured on the first wave,
+        after one eager warm-up step)."""
+        first = self._cache is None
+        if first:
+            self._cache = {"layers": [{k: torch.empty_like(v)
+                                       for k, v in layer.items()}
+                                      for layer in cache["layers"]],
+                           "pos": cache["pos"]}
+            self._tok = torch.empty_like(tok)
+            self._out = torch.empty((self.batch, self.max_new),
+                                    dtype=torch.int32, device=self.device)
+        for mine, theirs in zip(self._cache["layers"], cache["layers"],
+                                strict=True):
+            for k, v in theirs.items():
+                mine[k].copy_(v)
+        del cache
+        self._tok.copy_(tok)
+        self._out[:, :1].copy_(tok)
+        if first and self.max_new > 1:
+            # the warm-up writes step 0's cache slot, as its graph will
+            self._step_graph(0)
+            self._tok.copy_(tok)
+            for i in range(self.max_new - 1):
+                self.graphs.capture(i, lambda i=i: self._step_graph(i))
+        replayed = self.graphs.replayed.copy()
+        done = [False] * stop_rows
+        n = 1
+        for i in range(self.max_new - 1):
+            if stop_rows:
+                last = self._tok[:stop_rows, 0].tolist()
+                done = [d or t == self.eos for d, t in zip(done, last)]
+                if all(done):
+                    break
+            self.graphs.replay(i)
+            n += 1
+        notes["graph_launches"] = dict(self.graphs.replayed - replayed)
+        # a copy: the next wave's replays overwrite the block
+        return self._out[:, :n].clone()
 
     def _drain_stage(self, reqs: list[Request], emitted) -> None:
         emitted = emitted.cpu().numpy()

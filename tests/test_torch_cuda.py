@@ -662,3 +662,177 @@ def test_apply_moe_waits_for_no_host_copy(cuda_device, tokens):
     assert (2 * cap < 64) == (tokens == 1)
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert float(err) <= moe_gemm_tol(torch.bfloat16, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# SCN batched serving and graph decode
+# ---------------------------------------------------------------------------
+
+SCN_SERVE_CFG = UNetConfig(widths=(16, 32, 48), reps=1, resolution=32,
+                           capacity=4096, n_classes=N_CLASSES)
+
+
+def _serve_scene(seed, n_active=None) -> SparseVoxelTensor:
+    coords, feats, _, mask = make_scene(seed, 32, 4096)
+    if n_active is not None:
+        mask = mask.copy()
+        mask[np.flatnonzero(mask)[n_active:]] = False
+    return SparseVoxelTensor(coords, feats, mask)
+
+
+@pytest.mark.cuda
+def test_apply_unet_and_wave_forward_wait_for_no_host_sync(cuda_device):
+    """One scene's forward and one wave's (three scenes' plans stacked),
+    on the card with tiled convs through the kernel, enqueue without a host
+    sync: under sync debug mode "error" a blocking copy, a synchronize or a
+    data-dependent shape raises. A CUDA graph capture needs that."""
+    cfg = SCN_SERVE_CFG
+    scenes = [_serve_scene(s, n) for s, n in ((300, None), (301, 900),
+                                               (302, 1500))]
+    spec = engine.build_plan_spec(scenes[:2], cfg)
+    plans = [engine.build_scene_plan(t, cfg, spec=spec, device=cuda_device)
+             for t in scenes]
+    feats = [torch.from_numpy(t.feats).to(cuda_device) for t in scenes]
+    model = SCNUNet(cfg, device=cuda_device)
+    launches = sspnna_fused.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            one = engine.apply_unet(model, feats[0], plans[0],
+                                    device=cuda_device)
+            wave = engine.apply_unet(model, torch.cat(feats),
+                                     engine.stack_plans(plans),
+                                     device=cuda_device)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    per_forward = 1 + 2 * (cfg.n_levels - 1) + 1   # stem, enc, dec
+    assert sspnna_fused.launches - launches == 2 * per_forward
+    assert wave.shape == (3 * cfg.capacity, cfg.n_classes)
+    assert bool(torch.isfinite(wave).all()) and bool(torch.isfinite(one).all())
+
+
+@pytest.mark.cuda
+def test_scene_engine_graph_replay_matches_eager_wave(cuda_device):
+    """A pinned-spec wave served on the card replays the bucket's CUDA
+    graph: its logits match the eager wave forward within 1e-5, a second
+    serve of the same scenes gives the same bits, and the launches counted
+    at capture equal the eager wave's."""
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    cfg = SCN_SERVE_CFG
+    scenes = [_serve_scene(s, n) for s, n in ((310, None), (311, 700),
+                                               (312, 1300))]
+    spec = engine.build_plan_spec(scenes, cfg)
+    model = SCNUNet(cfg, device=cuda_device)
+    ctx = engine.ExecutionContext(device=cuda_device)
+
+    def serve(sync):
+        eng = SceneEngine(cfg, model, 3, spec=spec, ctx=ctx, sync=sync)
+        handles = eng.submit([SceneRequest(i, t) for i, t in enumerate(scenes)])
+        eng.serve()
+        out = np.stack([h.result().logits for h in handles])
+        eng.close()
+        return eng, out
+
+    eng, first = serve(True)
+    assert eng.n_compilations == 1 and len(eng.graphs) == 1
+    assert eng.graphs.replays == 1
+    _, second = serve(False)   # another engine: its own graph
+    np.testing.assert_array_equal(first, second)
+    plans = [ctx.plan_cache.get_or_build(t, cfg, device=cuda_device,
+                                         spec=spec, plan_tiles=True)
+             for t in scenes]
+    launches = sspnna_fused.launches
+    with torch.inference_mode():
+        want = engine.apply_unet(
+            model, torch.cat([torch.from_numpy(t.feats) for t in scenes]),
+            engine.stack_plans(plans), device=cuda_device)
+    eager = sspnna_fused.launches - launches
+    assert eager > 0
+    assert eng.graphs.launches(cfg.capacity)["sspnna_fused"] == eager
+    assert eng.wave_stats[0].notes["graph_launches"] == {
+        "sspnna_fused": eager}
+    np.testing.assert_allclose(first.reshape(-1, cfg.n_classes),
+                               want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    # a replay into the same buffers twice gives the same bits
+    eng.submit([SceneRequest(9 + i, t) for i, t in enumerate(scenes)])
+    eng.serve()
+    again = np.stack([r.logits for r in eng.scheduler.completed[-3:]])
+    np.testing.assert_array_equal(again, second)
+    assert eng.graphs.replays == 2 and len(eng.graphs) == 1
+
+
+def _decode_cfg(arch):
+    """Two layers at the published widths, in bf16 (Gemma-2's window cut to
+    32 so a 40-token prompt fills its ring cache)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    return (dataclasses.replace(cfg, window=32) if arch == "gemma2-2b"
+            else cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "moonshot-v1-16b-a3b"])
+def test_graph_decode_tokens_equal_eager(cuda_device, arch, sync):
+    """The engine's decode-step graphs emit exactly the eager steps' tokens
+    over two waves (the second re-fills the static cache), and each graph
+    recorded the launches of an eager step."""
+    from repro_torch.serving.engine import Engine, Request, make_prefill, make_serve_step
+
+    cfg = _decode_cfg(arch)
+    batch, prompt_len, max_new = 2, 40, 6
+    params = transformer.init_lm(
+        cfg, device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (40, 17, 33, 40)]
+    prefill, step = make_prefill(cfg, cache_pad=max_new), make_serve_step(cfg)
+    want, step_launches = {}, []
+    with torch.inference_mode():
+        for w in range(0, len(prompts), batch):
+            toks = np.zeros((batch, prompt_len), np.int32)
+            for i, p in enumerate(prompts[w:w + batch]):
+                toks[i, -len(p):] = p
+            logits, cache = prefill(params, torch.from_numpy(toks).to(
+                cuda_device))
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            out = [tok]
+            for _ in range(max_new - 1):
+                before = grouped_gemm.launches
+                tok, _, cache = step(params, tok[:, None], cache)
+                step_launches.append(grouped_gemm.launches - before)
+                out.append(tok)
+            block = torch.stack(out, 1).tolist()
+            for i in range(len(prompts[w:w + batch])):
+                want[w + i] = block[i]
+    eng = Engine(cfg, params, batch, prompt_len, max_new, sync=sync,
+                 device=cuda_device)
+    handles = eng.submit([Request(i, p, max_new=max_new)
+                          for i, p in enumerate(prompts)])
+    eng.serve()
+    got = {h.request.rid: h.result().out for h in handles}
+    eng.close()
+    assert got == want
+    assert len(eng.graphs) == max_new - 1
+    assert eng.graphs.replays == 2 * (max_new - 1)
+    per_step = 3 * cfg.n_layers if cfg.is_moe else 0
+    assert set(step_launches) == {per_step}
+    for i in range(max_new - 1):
+        assert eng.graphs.launches(i)["moe_gemm"] == per_step
+    for st in eng.wave_stats:
+        assert st.notes["graph_launches"].get("moe_gemm", 0) == \
+            per_step * (max_new - 1)
+    if sync:   # the blocking mode's early EOS exit reads between replays
+        eos = want[0][2]
+        eng = Engine(cfg, params, batch, prompt_len, max_new, eos=eos,
+                     device=cuda_device)
+        handles = eng.submit([Request(i, p, max_new=max_new)
+                              for i, p in enumerate(prompts)])
+        eng.serve()
+        cut = {rid: o[:o.index(eos) + 1] if eos in o else o
+               for rid, o in want.items()}
+        assert {h.request.rid: h.result().out for h in handles} == cut
+        eng.close()

@@ -180,7 +180,9 @@ def test_port_imports_no_jax():
             ".__init__")
         for f in (src / "repro_torch").rglob("*.py"))
     assert {"repro_torch.serving.engine", "repro_torch.models.transformer",
-            "repro_torch.kernels.flash.flash"} <= set(modules)
+            "repro_torch.kernels.flash.flash", "repro_torch.engine.context",
+            "repro_torch.serving.graphs",
+            "repro_torch.serving.scene_engine"} <= set(modules)
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -1,0 +1,322 @@
+"""Port parity for SCN batched serving: the port's ``SceneEngine`` against
+the JAX package's, batched with a pinned spec and bucketed, and the wave
+forward (B scenes' plans stacked into one pass) against each scene's own
+``apply_unet``.
+
+Logits are compared as max |got - want| / max(|want|, 1): f32 sums in
+another order, followed by a batch norm after every conv. The wave test
+against per-scene forwards uses scenes of different sizes, so a batch norm
+over the whole wave or a tile pad landing in the next scene would show.
+"""
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro import engine as jengine
+from repro.models.scn import UNetConfig as JUNetConfig
+from repro.models.scn import init_unet
+from repro.serving.scene_engine import SceneEngine as JSceneEngine
+from repro.serving.scene_engine import SceneRequest as JSceneRequest
+from repro.serving.scheduler import AdmissionPolicy as JAdmissionPolicy
+from repro.sparse.tensor import SparseVoxelTensor as JSparseVoxelTensor
+from repro_torch import engine
+from repro_torch.configs import get_config
+from repro_torch.data.scenes import N_CLASSES, make_scene
+from repro_torch.kernels.sspnna.sspnna import sspnna_fused
+from repro_torch.models import transformer
+from repro_torch.models.scn import UNetConfig, params_from_jax
+from repro_torch.serving.api import SHED, AdmissionPolicy, RequestShedError
+from repro_torch.serving.engine import Engine, Request
+from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+from repro_torch.sparse.tensor import SparseVoxelTensor
+
+ROOT = Path(__file__).resolve().parents[1]
+RES, CAP = 32, 4096
+CFG = dict(widths=(16, 32, 48), reps=1, resolution=RES, capacity=CAP,
+           n_classes=N_CLASSES)
+TOL = 1e-4
+
+
+def _arrays(seed, n_active=None):
+    coords, feats, _, mask = make_scene(seed, RES, CAP)
+    if n_active is not None:
+        mask = mask.copy()
+        mask[np.flatnonzero(mask)[n_active:]] = False
+        feats = np.where(mask[:, None], feats, 0).astype(np.float32)
+    return coords, feats, mask
+
+
+def _scene(seed, n_active=None) -> SparseVoxelTensor:
+    return SparseVoxelTensor(*_arrays(seed, n_active))
+
+
+def _jscene(seed, n_active=None) -> JSparseVoxelTensor:
+    return JSparseVoxelTensor(*_arrays(seed, n_active))
+
+
+def _rel(got, want) -> float:
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+
+
+@pytest.fixture(scope="module")
+def unet():
+    tree = jax.tree.map(np.asarray,
+                        init_unet(jax.random.PRNGKey(0), JUNetConfig(**CFG)))
+    return tree, params_from_jax(tree, UNetConfig(**CFG), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def specs():
+    reps = (100, 101)
+    return (engine.build_plan_spec([_scene(s) for s in reps],
+                                   UNetConfig(**CFG)),
+            jengine.build_plan_spec([_jscene(s) for s in reps],
+                                    JUNetConfig(**CFG)))
+
+
+def _ctx(**kw):
+    return engine.ExecutionContext(device="cpu", **kw)
+
+
+def _serve(eng, scenes, req_cls):
+    handles = eng.submit([req_cls(i, s) for i, s in enumerate(scenes)])
+    eng.serve()
+    out = {h.request.rid: h.result() for h in handles}
+    eng.close()
+    return out
+
+
+# seeds and active-voxel cuts: three sizes, so waves of 2 pad the last one
+WAVE = [(200, None), (201, 900), (202, 1400)]
+
+
+def test_batched_pinned_wave_matches_jax(unet, specs):
+    tree, model = unet
+    spec, jspec = specs
+    assert all(d.backend == engine.SSPNNA for d in spec.levels)
+    want = _serve(JSceneEngine(JUNetConfig(**CFG), tree, 2, spec=jspec),
+                  [_jscene(*w) for w in WAVE], JSceneRequest)
+    launches = sspnna_fused.launches
+    eng = SceneEngine(UNetConfig(**CFG), model, 2, spec=spec, ctx=_ctx())
+    got = _serve(eng, [_scene(*w) for w in WAVE], SceneRequest)
+    assert sspnna_fused.launches == launches  # CPU: the plain version
+    assert eng.n_compilations == 1 and len(eng.wave_stats) == 2
+    assert eng.graphs is None  # nothing is captured on the CPU
+    for rid, r in got.items():
+        assert r.logits.shape == (CAP, N_CLASSES) and r.done
+        assert _rel(r.logits, np.asarray(want[rid].logits)) <= TOL
+        np.testing.assert_array_equal(r.pred, r.logits.argmax(-1))
+
+
+def test_bucketed_wave_matches_jax(unet):
+    tree, model = unet
+    sizes = [300, 320, 1500, 1600]
+    fam = engine.build_signature_family(
+        [_scene(10 + i, n) for i, n in enumerate(sizes)], UNetConfig(**CFG),
+        max_buckets=2)
+    jfam = jengine.build_signature_family(
+        [_jscene(10 + i, n) for i, n in enumerate(sizes)],
+        JUNetConfig(**CFG), max_buckets=2)
+    assert fam.capacities == jfam.capacities and fam.n_buckets == 2
+    wave = [(30, 250), (31, 1450), (32, 310), (33, 1200), (34, 200)]
+    want = _serve(JSceneEngine(JUNetConfig(**CFG), tree, 2, family=jfam,
+                               policy=JAdmissionPolicy()),
+                  [_jscene(*w) for w in wave], JSceneRequest)
+    eng = SceneEngine(UNetConfig(**CFG), model, 2, family=fam,
+                      policy=AdmissionPolicy(), ctx=_ctx())
+    got = _serve(eng, [_scene(*w) for w in wave], SceneRequest)
+    assert eng.n_compilations == 2
+    assert {s.bucket for s in eng.wave_stats} == set(fam.capacities)
+    for rid, r in got.items():
+        # logits come back at the request's own capacity and rows
+        assert r.logits.shape == (CAP, N_CLASSES)
+        assert _rel(r.logits, np.asarray(want[rid].logits)) <= TOL
+
+
+@pytest.mark.parametrize("mode", ["batched", "bucketed"])
+def test_async_matches_sync_bit_for_bit(unet, specs, mode):
+    _, model = unet
+    spec, _ = specs
+    scenes = [_scene(*w) for w in WAVE] + [_scene(203, 600)]
+    kw = (dict(spec=spec) if mode == "batched" else
+          dict(family=engine.SignatureFamily((1024, CAP)),
+               policy=AdmissionPolicy()))
+
+    def serve(sync):
+        eng = SceneEngine(UNetConfig(**CFG), model, 2, ctx=_ctx(), sync=sync,
+                          depth=2, planner_threads=2, **kw)
+        return {rid: r.logits for rid, r in
+                _serve(eng, scenes, SceneRequest).items()}
+
+    by_sync, by_async = serve(True), serve(False)
+    assert by_sync.keys() == by_async.keys()
+    for rid in by_sync:
+        np.testing.assert_array_equal(by_sync[rid], by_async[rid])
+
+
+def test_async_survives_plan_cache_eviction(unet, specs):
+    """LRU pressure between the plan and dispatch stages neither rebuilds
+    nor corrupts: dispatch adopts the plan stage's host plan."""
+    _, model = unet
+    spec, _ = specs
+    scenes = [_scene(1000 + i, 600 + 100 * i) for i in range(4)]
+
+    def serve(sync, size):
+        ctx = _ctx(plan_cache=engine.PlanCache(size))
+        eng = SceneEngine(UNetConfig(**CFG), model, 2, spec=spec, ctx=ctx,
+                          sync=sync, depth=2, planner_threads=2)
+        return eng, _serve(eng, scenes, SceneRequest)
+
+    _, by_sync = serve(True, 128)
+    eng, by_async = serve(False, 1)
+    for rid in by_sync:
+        np.testing.assert_array_equal(by_sync[rid].logits,
+                                      by_async[rid].logits)
+    # one counted miss per scene at the plan stage; adoption never counts
+    assert eng.cache.misses == len(scenes) and eng.cache.hits == 0
+
+
+def test_wave_forward_matches_each_scenes_forward(unet, specs):
+    """Three scenes of different sizes in one pass equal each scene's own
+    ``apply_unet`` on the same pinned plans."""
+    _, model = unet
+    spec, _ = specs
+    cfg = UNetConfig(**CFG)
+    scenes = [_scene(*w) for w in WAVE]
+    plans = [engine.build_scene_plan(t, cfg, spec=spec, device="cpu")
+             for t in scenes]
+    assert len({engine.plan_signature(p) for p in plans}) == 1
+    wave = engine.stack_plans(plans)
+    assert wave.n_scenes == 3
+    with torch.no_grad():
+        got = engine.apply_unet(
+            model, np.concatenate([np.asarray(t.feats) for t in scenes]),
+            wave, device="cpu").reshape(3, CAP, -1)
+        for i, (t, p) in enumerate(zip(scenes, plans)):
+            want = engine.apply_unet(model, t.feats, p, device="cpu")
+            assert _rel(got[i].numpy(), want.numpy()) <= 1e-5
+    # the stacked tables into a wave of the same signature, in place
+    again = engine.stack_plans(plans[::-1], out=wave)
+    assert again is wave
+    np.testing.assert_array_equal(
+        wave.levels[0].mask.numpy(),
+        np.concatenate([np.asarray(t.mask) for t in scenes[::-1]]))
+    with pytest.raises(ValueError, match="signature"):
+        engine.stack_plans(plans[:2], out=wave)
+    eng = SceneEngine(cfg, model, 3, spec=spec, ctx=_ctx())
+    feats = [torch.from_numpy(np.asarray(t.feats)) for t in scenes]
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            eng.run_wave(feats, plans, CAP).numpy(), got.reshape(-1, N_CLASSES)
+            .numpy())
+    with pytest.raises(ValueError, match="features"):
+        eng.run_wave([f[:, :2] for f in feats], plans, CAP)
+
+
+def test_oversize_scene_shed_with_capacity_reason(unet):
+    _, model = unet
+    eng = SceneEngine(UNetConfig(**CFG), model, 2,
+                      family=engine.SignatureFamily((256,)), ctx=_ctx())
+    ok = eng.submit(SceneRequest(0, _scene(50, 100)))
+    big = eng.submit(SceneRequest(1, _scene(51, 500)))
+    assert big.status == SHED and big.request.shed_reason == "capacity"
+    eng.serve()
+    assert ok.result().logits.shape == (CAP, N_CLASSES)
+    with pytest.raises(RequestShedError, match="capacity"):
+        big.result()
+    assert eng.slo_stats()["shed_by_reason"] == {"capacity": 1}
+    eng.close()
+
+
+def test_overflowing_plan_raises_instead_of_running(unet, specs):
+    """A scene over the pinned tile budget gets a reference level, so its
+    plan's signature leaves the bucket's: the wave fails, nothing runs
+    eagerly, and the requests go back to the queue."""
+    _, model = unet
+    spec, _ = specs
+    tight = engine.PlanSpec(tuple(
+        dataclasses.replace(d, n_tiles=2) if li == 0 else d
+        for li, d in enumerate(spec.levels)))
+    eng = SceneEngine(UNetConfig(**CFG), model, 2, spec=tight, ctx=_ctx())
+    eng.submit([SceneRequest(0, _scene(60)), SceneRequest(1, _scene(61))])
+    with pytest.raises(RuntimeError, match="tile"):
+        eng.serve()
+    assert sorted(r.rid for r in eng.queue) == [0, 1]
+    assert eng.n_compilations == 0
+    eng.close()
+
+
+def test_mixed_bucket_wave_raises(unet):
+    _, model = unet
+    eng = SceneEngine(UNetConfig(**CFG), model, 2,
+                      family=engine.SignatureFamily((1024, CAP)), ctx=_ctx())
+    reqs = [SceneRequest(0, _scene(70, 500)), SceneRequest(1, _scene(71))]
+    for r in reqs:
+        assert eng._prepare(r) is None
+    payloads = [eng._plan_stage(r) for r in reqs]
+    with pytest.raises(RuntimeError, match="mixes capacity buckets"):
+        eng._dispatch_stage(reqs, payloads,
+                            eng.scheduler._new_stats(reqs, sync=True))
+
+
+def test_later_slices_and_devices_raise(unet):
+    _, model = unet
+    cfg = UNetConfig(**CFG)
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        SceneEngine(cfg, model, 2, layout=object(), ctx=_ctx())
+    eng = SceneEngine(cfg, model, 2, ctx=_ctx())
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        eng.open_stream()
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        eng.serve_stream([_scene(0)])
+    assert eng.health()["breakers"] == {}
+    with pytest.raises(ValueError, match="model is on cpu"):
+        SceneEngine(cfg, model, 2,
+                    ctx=engine.ExecutionContext(device="meta"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SceneEngine(cfg, model, 2)
+
+
+def test_lm_engine_captures_nothing_on_the_cpu():
+    """The decode-step graphs are the card's: on the CPU the engine keeps
+    its eager steps, and the tokens equal the plain greedy loop's."""
+    cfg = get_config("gemma2-2b").reduced()
+    params = transformer.init_lm(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, 24)
+    eng = Engine(cfg, params, 1, 24, 4, device="cpu")
+    out = eng.submit(Request(0, prompt.astype(np.int32), max_new=4))
+    eng.serve()
+    assert eng.graphs is None
+    assert eng.wave_stats[0].notes == {}
+    with torch.no_grad():
+        logits, cache, _ = transformer.forward(
+            params, cfg, torch.from_numpy(prompt[None]), mode="prefill",
+            cache_pad=4, last_only=True)
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        want = [int(tok[0])]
+        for _ in range(3):
+            logits, cache = transformer.decode_step(params, cfg, tok[:, None],
+                                                    cache)
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            want.append(int(tok[0]))
+    assert out.result().out == want
+    eng.close()
+
+
+def test_segment_scene_example_runs_on_the_cpu():
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "segment_scene_torch.py"),
+         "--device", "cpu", "--requests", "3", "--batch", "2", "--res", "16",
+         "--cap", "1024"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "req 2:" in res.stdout and "graphs=0" in res.stdout
