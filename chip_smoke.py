@@ -60,12 +60,24 @@
    (1e-3); the wave is timed eagerly and as a graph replay (host clock,
    and device time with the busy share), each of its kernel launches held
    against the plain version and timed on the device.
-8. Holds the flash attention kernel against its plain version on random
+8. Serves two LiDAR sweeps (``make_lidar_sweep``, seeds 0-1, 4 frames of
+   ~78.6k voxels at resolution 256, ego step 8) as two streams through
+   ``SceneEngine.open_stream`` with a spec pinned from their first frames,
+   one frame of each stream a wave, blocking and then pipelined: modes
+   rebuilt then patched, equal bits in both serves, every wave a replay of
+   the bucket's one graph running ``sspnna_fused`` once per sspnna conv
+   and no other kernel. Stream 0's patched tables must equal a
+   from-scratch build of the re-packed frame and its logits its own
+   ``apply_unet`` (1e-4) and ``reference`` (1e-3). Times the host plans
+   (patched against from scratch), the sweep, a stream wave's replay (busy
+   share) and its kernel launches (held against the plain version, beside
+   their bound), and counts the bytes each frame's upload copied.
+9. Holds the flash attention kernel against its plain version on random
    q, k, v (``kernels/flash/ref.FLASH_CASES``: causal and not, sq < skv,
    windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2, ragged
    lengths, and the bf16 kernel's edges: many tiles at D=256, Sq=129, a
    window shorter than a tile, sq > skv, D=32).
-9. Drives the LM serving path: Gemma-2 2B at its published widths (26
+10. Drives the LM serving path: Gemma-2 2B at its published widths (26
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
    4096, softcaps 50 and 30), bf16, random weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``. An ``Engine`` (batch 2, prompt
@@ -75,7 +87,7 @@
    must be equal, and each wave's last-position logits must match the same
    weights with the attention's plain version, in f32 (the weights cast up)
    and in bf16 (first tokens equal).
-10. Replays every flash launch of one wave's prefill against the plain
+11. Replays every flash launch of one wave's prefill against the plain
    version and times kernel, plain version and bound; at the global-layer
    shape it also times the kernel without softcap beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
@@ -83,11 +95,11 @@
    token as eager steps against the serving engine's step graphs (one
    CUDA graph per step index, replayed by every wave), with the device's
    busy share; the two must emit the same tokens.
-11. Frees the Gemma path and holds the grouped expert GEMM kernel against
+12. Frees the Gemma path and holds the grouped expert GEMM kernel against
    its plain version (``kernels/moe_gemm/ref.MOE_GEMM_CASES``: the JAX
    test's shapes, ragged C, d and f, an expert with no valid row, C = 8,
    f32 and bf16 with both output dtypes).
-12. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
+13. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
    and depth (48 layers, d_model 2048, 16 heads of 128, 64 experts top-6 of
    d_ff 1408, vocab 163840; 27.7 B parameters), bf16, random weights drawn
    on the card. An ``Engine`` (batch 2, prompt length 4096, 16 new tokens)
@@ -97,12 +109,12 @@
    graph replays, counted by the engine), and both runs must emit the same
    tokens. Decode per token, eager steps against the step graphs, as for
    Gemma-2.
-13. Checks every expert-GEMM launch of one wave's prefill and of one decode
+14. Checks every expert-GEMM launch of one wave's prefill and of one decode
    step against the plain version at its real inputs; the last-position
    logits at full width and 4 layers against the plain expert products in
    f32 and bf16; and reports (ungated) the full-depth bf16 logits against
    the plain expert products, for which no f32 noise floor fits the card.
-14. Times the kernel at the path's four launch shapes beside its plain
+15. Times the kernel at the path's four launch shapes beside its plain
    version, ``torch.bmm`` (a yardstick the port never calls) and its bound,
    as one call (``time_ms``) and, kernel and ``torch.bmm``, on the device
    (``device_ms``);
@@ -164,6 +176,10 @@ LOGITS_TOL = 1e-3
 WAVE_TOL = 1e-4
 SEEDS = (0, 1, 2)
 RESOLUTION, CAPACITY, POINTS_PER_UNIT = 256, 131072, 2e6
+# SCN streaming: two LiDAR sweeps of STREAM_FRAMES frames at the scene
+# path's resolution and capacity; an ego step of 8 voxels keeps the shift
+# divisible by 2^3 (four levels), so frames after the first are patched
+STREAM_SEEDS, STREAM_FRAMES, STREAM_STEP, STREAM_CHURN = (0, 1), 4, 8, 0.05
 DEVICE = "cuda"
 # the LM path: Gemma-2 2B at full width, one engine shape, four prompts of
 # lengths above the 4096 window (left-padded to PROMPT_LEN with token 0)
@@ -373,6 +389,16 @@ class Phases:
         self.name = None
 
 
+def sspnna_convs(plan, cfg) -> int:
+    """Convs of one forward that the planner sent to the kernel."""
+    n = 0
+    for li, lvl in enumerate(plan.levels):
+        if lvl.sub.dispatch.backend == "sspnna" and lvl.sub.tiles is not None:
+            n += ((li == 0) + cfg.reps
+                  + (cfg.reps if li < len(plan.levels) - 1 else 0))
+    return n
+
+
 def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     """Phases 2-4: ``sspnna_fused`` on random tables, the SCN forward on
     three scenes, and the replay of seed 0's launches. Returns the kernel's
@@ -428,22 +454,13 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
               f"{plan_s:.1f} s: {levels}")
         requests.append((seed, feats, labels, mask, host))
 
-    def sspnna_convs(plan) -> int:
-        """Convs of one forward that the planner sent to the kernel."""
-        n = 0
-        for li, lvl in enumerate(plan.levels):
-            if lvl.sub.dispatch.backend == engine.SSPNNA and lvl.sub.tiles is not None:
-                n += ((li == 0) + cfg.reps
-                      + (cfg.reps if li < len(plan.levels) - 1 else 0))
-        return n
-
     fused.launches = flash_attention.launches = sspnna.sspnna_tiles.launches = 0
     uploaded = {}
     with torch.inference_mode():
         for seed, feats, labels, mask, host in requests:
             plan = engine.upload_scene_plan(host, dev)
             uploaded[seed] = plan
-            expected = sspnna_convs(plan)
+            expected = sspnna_convs(plan, cfg)
             before = fused.launches
             logits = engine.apply_unet(model, feats, plan, device=dev)
             torch.cuda.synchronize()
@@ -1108,6 +1125,244 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
             "wave_dead_tiles": [dead, tiles],
             "wave": times,
             "scene": {"ms": one_ms, **one_busy}}
+
+
+def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
+    """Phase 8: SCN streaming. Pins a spec from the first frame of two
+    LiDAR sweeps, serves both sweeps as streams through a ``SceneEngine``
+    (each wave one frame of each stream), blocking and then pipelined, and
+    checks modes, bits, the graph and the kernel: every wave must be a
+    replay of the bucket's one graph, which runs ``sspnna_fused`` once per
+    sspnna conv. Stream 0's patched tables are held against a from-scratch
+    build of the re-packed frame, and its logits against its own
+    ``apply_unet`` and ``reference``. Times the host plans (patched against
+    from scratch), the sweep, a stream wave's replay and its kernel
+    launches beside their bound. Returns the numbers for the kernel's JSON
+    entry."""
+    from repro_torch import engine
+    from repro_torch.core.host_meta import pack_stream_frame_np
+    from repro_torch.data.scenes import make_lidar_sweep
+    from repro_torch.engine.plan import plan_leaves
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.sspnna import ops, sspnna
+    from repro_torch.serving.graphs import COUNTED
+    from repro_torch.serving.scene_engine import SceneEngine
+    from repro_torch.sparse.tensor import PAD_COORD, SparseVoxelTensor
+
+    fused, plain = sspnna.sspnna_fused, sspnna.sspnna_fused_plain
+    n_streams, n_frames = len(STREAM_SEEDS), STREAM_FRAMES
+    phase("SCN streaming: spec")
+    sweeps = []
+    for seed in STREAM_SEEDS:
+        frames, shifts = make_lidar_sweep(
+            seed, n_frames, resolution=RESOLUTION, capacity=CAPACITY,
+            step=STREAM_STEP, churn=STREAM_CHURN)
+        sweeps.append(([SparseVoxelTensor(c, f, m) for c, f, _, m in frames],
+                       shifts))
+    print("sweeps: " + "; ".join(
+        f"seed {seed}: " + ", ".join(str(int(t.mask.sum())) for t in sc)
+        + " active voxels" for seed, (sc, _) in zip(STREAM_SEEDS, sweeps)))
+    t0 = time.perf_counter()
+    spec = engine.build_plan_spec([sc[0] for sc, _ in sweeps], cfg)
+    print(f"plan spec pinned from the sweeps' first frames in "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"L{li} {d.backend}" + (f" dO={d.delta_o} dI={d.delta_i} "
+                                      f"T={d.n_tiles}"
+                                      if d.backend == engine.SSPNNA else "")
+              for li, d in enumerate(spec.levels)))
+    check(any(d.backend == engine.SSPNNA for d in spec.levels),
+          "the stream spec sends no level to sspnna")
+
+    phase("SCN streaming")
+    ctx = engine.ExecutionContext(device=dev)
+    # the streaming path's counts: set to 0 here, read after both serves
+    fused.launches = sspnna.sspnna_tiles.launches = 0
+    flash_attention.launches = grouped_gemm.launches = 0
+    runs = {}
+    with torch.inference_mode():
+        for sync in (True, False):
+            eng = SceneEngine(cfg, model, n_streams, spec=spec, ctx=ctx,
+                              sync=sync, planner_threads=n_streams)
+            streams = [eng.open_stream(f"lidar{s}") for s in STREAM_SEEDS]
+            handles = [[] for _ in streams]
+            t0 = time.perf_counter()
+            for fno in range(n_frames):  # frame by frame, streams in turn
+                for i, (scenes, shifts) in enumerate(sweeps):
+                    handles[i].append(streams[i].submit(scenes[fno],
+                                                        shifts[fno]))
+            eng.serve()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            reqs = [[h.result() for h in hs] for hs in handles]
+            eng.close()
+            modes = [[r.plan_info["mode"] for r in rs] for rs in reqs]
+            st = eng.wave_stats
+            lat = sorted(r.latency_ms for rs in reqs for r in rs)
+            print(f"stream serve sync={sync}: {n_streams * n_frames} frames "
+                  f"in {len(st)} waves, {wall_s:.3f} s ("
+                  f"{n_streams * n_frames / wall_s:.3f} frames/s, "
+                  f"{1e3 * wall_s / (n_streams * n_frames):.1f} ms a frame; "
+                  f"request latency median {statistics.median(lat):.1f} ms, "
+                  f"max {lat[-1]:.1f} ms); modes {modes}; plan stage "
+                  f"{sum(x.plan_ms for x in st):.1f} ms; graphs "
+                  f"{len(eng.graphs)}, replays {eng.graphs.replays}")
+            check(all(m == ["rebuilt"] + ["patched"] * (n_frames - 1)
+                      for m in modes),
+                  f"stream modes {modes}, expected rebuilt then patched")
+            check(len(st) == n_frames
+                  and all(len(x.rids) == n_streams for x in st),
+                  "a stream wave did not hold one frame of each stream")
+            check(eng.n_compilations == 1 and len(eng.graphs) == 1
+                  and eng.graphs.replays == n_frames,
+                  "stream waves did not replay one bucket graph")
+            logits = np.stack([[r.logits for r in rs] for rs in reqs])
+            check(logits.shape == (n_streams, n_frames, CAPACITY,
+                                   cfg.n_classes)
+                  and bool(np.isfinite(logits).all()),
+                  "stream logits not finite or of the wrong shape")
+            runs[sync] = (eng, reqs, logits, wall_s, modes)
+    check(np.array_equal(runs[True][2], runs[False][2])
+          and runs[True][4] == runs[False][4],
+          "blocking and pipelined streams gave other logits or modes")
+    engines = [r[0] for r in runs.values()]
+    expected = sspnna_convs(ctx.plan_cache.adopt(
+        runs[True][1][0][0].plan_key, None, device=False), cfg)
+    per_replay = engines[0].graphs.launches(cfg.capacity)
+    captured = sum(e.graphs.captured["sspnna_fused"] for e in engines)
+    replayed = sum(e.graphs.replayed["sspnna_fused"] for e in engines)
+    launched = fused.launches - captured + replayed
+    print(f"SCN streaming path: sspnna_fused counter {fused.launches} "
+          f"(warm-ups and {captured} recorded at capture), {replayed} run by "
+          f"replays ({per_replay['sspnna_fused']} a replay, {expected} "
+          f"sspnna convs a frame): {launched} launches on the device")
+    check(replayed > 0 and per_replay["sspnna_fused"] == expected,
+          "the stream waves did not run sspnna_fused once per sspnna conv "
+          "inside the bucket's graph")
+    check(sspnna.sspnna_tiles.launches == flash_attention.launches
+          == grouped_gemm.launches == 0
+          and all(e.graphs.replayed[k] == 0 for e in engines
+                  for k in COUNTED if k != "sspnna_fused"),
+          "the SCN streaming path launched another kernel")
+
+    phase("SCN streaming checks")
+    eng, reqs = runs[True][0], runs[True][1]
+    plan_rows = []   # (frame, mode, patched ms, from-scratch ms)
+    uploads = []
+    with torch.inference_mode():
+        for r, scene in zip(reqs[0], sweeps[0][0]):
+            fr = r._frame_rows
+            act = np.flatnonzero(scene.mask)
+            pc = np.full_like(scene.coords, PAD_COORD)
+            pm = np.zeros_like(scene.mask)
+            pc[fr[act]], pm[fr[act]] = scene.coords[act], True
+            pf = pack_stream_frame_np(fr, scene.feats)
+            t0 = time.perf_counter()
+            scratch = engine.build_scene_plan_host(
+                SparseVoxelTensor(pc, pf, pm), cfg, spec=spec)
+            scratch_ms = (time.perf_counter() - t0) * 1e3
+            host = ctx.plan_cache.adopt(r.plan_key, None, device=False)
+            got, want = plan_leaves(host), plan_leaves(scratch)
+            check(len(got) == len(want) and all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(got, want)),
+                f"frame {r.frame_no}: patched tables differ from a "
+                "from-scratch build")
+            plan = engine.upload_scene_plan(host, dev)
+            feats = torch.from_numpy(pf).to(dev)
+            own = engine.apply_unet(model, feats, plan, device=dev)
+            ref = engine.apply_unet(model, feats, plan, backend="reference",
+                                    device=dev)
+            # the frame's own forwards, scattered to the caller's rows as
+            # the drain scatters the stream's (inactive rows stay 0)
+            canon = torch.from_numpy(fr).to(dev).long()
+            live = canon >= 0
+            got = torch.from_numpy(r.logits).to(dev)
+            own_rows, ref_rows = torch.zeros_like(got), torch.zeros_like(got)
+            own_rows[live], ref_rows[live] = own[canon[live]], ref[canon[live]]
+            _, own_err = max_err(got, own_rows)
+            _, ref_err = max_err(got, ref_rows)
+            plan_rows.append((r.frame_no, r.plan_info["mode"],
+                              r.plan_info["plan_ms"], scratch_ms))
+            uploads.append(r.plan_info["upload"])
+            print(f"stream 0 frame {r.frame_no} ({r.plan_info['mode']}, "
+                  f"overlap {r.plan_info['overlap']:.4f}): host plan "
+                  f"{r.plan_info['plan_ms']:.1f} ms, from scratch "
+                  f"{scratch_ms:.1f} ms, tables equal; upload "
+                  f"{r.plan_info['upload']['bytes']} of "
+                  f"{r.plan_info['upload']['of_bytes']} bytes; logits vs "
+                  f"its own apply_unet rel {own_err:.3g} (tol {WAVE_TOL}), "
+                  f"vs reference rel {ref_err:.3g} (tol {LOGITS_TOL})")
+            check(own_err <= WAVE_TOL, "stream and per-frame logits disagree")
+            check(ref_err <= LOGITS_TOL,
+                  "stream and reference logits disagree")
+
+    phase("SCN streaming timing")
+    last = [rs[-1] for rs in reqs]
+    with torch.inference_mode():
+        hosts = [ctx.plan_cache.adopt(r.plan_key, None, device=False)
+                 for r in last]
+        plans = [engine.upload_scene_plan(h, dev) for h in hosts]
+        feats = [torch.from_numpy(pack_stream_frame_np(
+            r._frame_rows, sweeps[i][0][-1].feats)).to(dev)
+            for i, r in enumerate(last)]
+
+        def graph():
+            return eng.run_wave(feats, plans, cfg.capacity)
+
+        wall = host_ms(graph, 5)
+        dev_span = device_ms(graph, 2)
+        print(f"stream wave of {n_streams} frames, graph replay: {wall:.3f} "
+              f"ms (host clock after synchronize, median of 5), device span "
+              f"{dev_span:.3f} ms (calls queued behind a spin)")
+        busy = busy_report(f"stream wave of {n_streams}, graph", graph, wall)
+        calls = []
+
+        def record(*args, **kw):
+            calls.append((args, kw))
+            return fused(*args, **kw)
+
+        ops.sspnna_fused = record
+        try:
+            engine.apply_unet(model, torch.cat(feats),
+                              engine.stack_plans(plans), device=dev)
+        finally:
+            ops.sspnna_fused = fused
+        check(len(calls) == per_replay["sspnna_fused"],
+              "the eager stream wave makes another number of launches than "
+              "the graph records")
+        wave_dev = bound = worst_abs = 0.0
+        for j, (args, kw) in enumerate(calls):
+            abs_err, rel_err = max_err(fused(*args, **kw), plain(*args, **kw))
+            check(rel_err <= KERNEL_TOL, f"stream wave launch {j} disagrees")
+            worst_abs = max(worst_abs, abs_err)
+            wave_dev += device_ms(lambda: fused(*args, **kw), 10)
+            bound += sspnna_bound(*args, kw["n_out"])[0]
+    patched = [u for (_, mode, _, _), u in zip(plan_rows, uploads)
+               if mode == "patched"]
+    print(f"sspnna_fused per stream wave: {len(calls)} launches, "
+          f"{wave_dev:.4f} ms on the device (bound {bound:.4f} ms); max abs "
+          f"{worst_abs:.3g} against the plain version")
+    print(f"uploads through device_plan: a patched frame copies "
+          f"{statistics.mean(u['bytes'] for u in patched):.0f} of "
+          f"{statistics.mean(u['of_bytes'] for u in patched):.0f} bytes "
+          f"({statistics.mean(u['leaves'] for u in patched):.1f} of "
+          f"{statistics.mean(u['of_leaves'] for u in patched):.1f} tables)")
+    return {"launches": launched,
+            "wave_launches": len(calls),
+            "sweep_s": {"blocking": runs[True][3],
+                        "pipelined": runs[False][3]},
+            "frames_per_s": {"blocking": n_streams * n_frames / runs[True][3],
+                             "pipelined": n_streams * n_frames
+                             / runs[False][3]},
+            "host_plan_ms": [{"frame": f, "mode": m, "patched": p,
+                              "from_scratch": sc}
+                             for f, m, p, sc in plan_rows],
+            "upload_bytes": [[u["bytes"], u["of_bytes"]] for u in uploads],
+            "wave": {"ms": wall, "device_ms": dev_span, **busy},
+            "wave_device_ms": wave_dev,
+            "wave_bound_ms": bound,
+            "wave_max_abs_err": worst_abs}
 
 
 def greedy_tokens(step, params, cfg, logits, cache) -> torch.Tensor:
@@ -2011,6 +2266,8 @@ def main() -> int:
           f"seed 0's adaptive forward {len(SEEDS) * fused_entry['device_ms']:.4f}"
           f" ms")
     fused_entry["serving"] = serving
+    fused_entry["streaming"] = scn_stream_path(dev, phase, seed0["model"],
+                                               seed0["cfg"])
     del seed0
     torch.cuda.empty_cache()
     results.append(lm_path(dev, phase))

@@ -4,8 +4,9 @@ Sorted linear keys plus a vectorized binary search stand in for the
 paper's banked spatial hash: every (voxel, kernel-offset) pair issues one
 ``torch.searchsorted`` probe. These functions take torch tensors and work
 on their device; ``core.host_meta`` holds the numpy twins the host planner
-uses, and both give the same tables. The streaming ``UpdatableSortedGrid``
-is not ported yet.
+uses, and both give the same tables. ``UpdatableSortedGrid`` is the
+streaming planner's numpy index, patched frame to frame instead of
+re-sorted.
 """
 from __future__ import annotations
 
@@ -124,6 +125,102 @@ def downsample_coords(
     ], dim=-1).to(torch.int32)
     out_coords = torch.where(out_mask[:, None], out_coords, PAD_COORD)
     return out_coords, out_mask
+
+
+class UpdatableSortedGrid:
+    """Updatable sorted-key index: the streaming seam of the AdMAC search.
+
+    ``SortedGrid`` / ``host_meta.SortedGridNp`` re-sort the full key set per
+    scene — fine for i.i.d. uploads, wasteful for a 10–20 Hz LiDAR stream
+    where frame t+1 keeps most of frame t's voxels. This numpy structure
+    keeps only the *active* keys sorted (paired with their row ids) and
+    supports the three stream mutations without a full re-sort:
+
+    * ``shift(key_offset)`` — uniform ego motion. Linear keys are linear in
+      the coordinate, so a constant coordinate shift is a constant key
+      offset and preserves sorted order entirely (O(n) add).
+    * ``delete(keys)`` — batched removal by sorted key (O(n) compress).
+    * ``insert(keys, rows)`` — batched insertion of sorted new keys at
+      their ``searchsorted`` positions (O(n + m log n) merge, no re-sort).
+
+    ``lookup`` returns bit-identical results to ``SortedGridNp.lookup`` on
+    the same active set: active keys are unique, and the sentinel rows the
+    capacity-shaped variant carries can never match a valid query, so
+    dropping them changes nothing.
+    """
+
+    def __init__(self, resolution: int, keys: np.ndarray | None = None,
+                 rows: np.ndarray | None = None):
+        self.resolution = resolution
+        self.keys = (np.empty((0,), np.int32) if keys is None
+                     else np.asarray(keys, np.int32))
+        self.rows = (np.empty((0,), np.int32) if rows is None
+                     else np.asarray(rows, np.int32))
+        if self.keys.shape != self.rows.shape:
+            raise ValueError(
+                f"keys {self.keys.shape} / rows {self.rows.shape} mismatch")
+
+    @classmethod
+    def from_coords(cls, coords: np.ndarray, mask: np.ndarray,
+                    resolution: int) -> "UpdatableSortedGrid":
+        from repro_torch.core.host_meta import linear_key_np
+
+        mask = np.asarray(mask)
+        rows = np.flatnonzero(mask).astype(np.int32)
+        keys = linear_key_np(np.asarray(coords)[rows], resolution)
+        order = np.argsort(keys, kind="stable")
+        return cls(resolution, keys[order], rows[order])
+
+    def __len__(self) -> int:
+        return int(self.keys.shape[0])
+
+    def shift(self, key_offset: int) -> None:
+        """Apply a uniform key offset (ego motion after removals: every
+        remaining coordinate stays in bounds, so no per-component borrow
+        can break the linear-key arithmetic)."""
+        if key_offset:
+            self.keys = self.keys + np.int32(key_offset)
+
+    def delete(self, keys: np.ndarray) -> None:
+        """Remove ``keys`` (sorted or not; must all be present)."""
+        keys = np.asarray(keys, np.int32)
+        if not keys.size:
+            return
+        pos = np.searchsorted(self.keys, keys)
+        if (pos >= len(self.keys)).any() or (self.keys[np.minimum(
+                pos, len(self.keys) - 1)] != keys).any():
+            raise KeyError("delete of keys not present in the grid")
+        keep = np.ones(len(self.keys), bool)
+        keep[pos] = False
+        self.keys = self.keys[keep]
+        self.rows = self.rows[keep]
+
+    def insert(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        """Insert new (key, row) pairs (keys must be sorted + absent)."""
+        keys = np.asarray(keys, np.int32)
+        rows = np.asarray(rows, np.int32)
+        if not keys.size:
+            return
+        pos = np.searchsorted(self.keys, keys)
+        self.keys = np.insert(self.keys, pos, keys)
+        self.rows = np.insert(self.rows, pos, rows)
+
+    def lookup(self, query_coords: np.ndarray,
+               query_valid: np.ndarray) -> np.ndarray:
+        """Row ids for query coords; -1 if absent (``SortedGridNp`` twin)."""
+        from repro_torch.core.host_meta import linear_key_np
+
+        r = self.resolution
+        q = np.asarray(query_coords)
+        in_bounds = np.all((q >= 0) & (q < r), axis=-1)
+        valid = np.asarray(query_valid) & in_bounds
+        qkey = linear_key_np(q, r, valid)
+        if not len(self.keys):
+            return np.full(qkey.shape, -1, np.int32)
+        pos = np.searchsorted(self.keys, qkey)
+        pos = np.minimum(pos, len(self.keys) - 1)
+        found = valid & (self.keys[pos] == qkey)
+        return np.where(found, self.rows[pos], -1).astype(np.int32)
 
 
 def upsample_coords(coords: torch.Tensor, mask: torch.Tensor):

@@ -2,8 +2,9 @@
 
 Procedurally builds rooms (floor, walls, furniture primitives), samples
 surface points with normals, voxelizes, and labels each voxel by its
-generating object class. Host-side numpy: the same seed gives byte-identical
-arrays to the JAX package's generator.
+generating object class. ``make_lidar_sweep`` gives a LiDAR stream instead:
+an ego window sliding over a persistent world. Host-side numpy: the same
+seed gives byte-identical arrays to the JAX package's generators.
 
 Classes: 0 floor, 1 wall, 2 box, 3 cylinder, 4 sphere. Features per point:
 (nx, ny, nz, height).
@@ -123,6 +124,106 @@ def make_scene(
         out_lbl[i] = np.bincount(lbl_s[s:s + c], minlength=N_CLASSES).argmax()
     mask[:n] = True
     return coords, out_feats, out_lbl, mask
+
+
+def _world_feats(wcoords: np.ndarray) -> np.ndarray:
+    """Deterministic per-world-voxel features: a voxel retained between
+    sweep frames carries bit-identical features in both (what a mapped
+    static world looks like to the network)."""
+    x = wcoords.astype(np.float64)
+    f = np.stack(
+        [np.sin(0.37 * x[:, 0] + 0.1), np.cos(0.53 * x[:, 1] + 0.2),
+         np.sin(0.71 * x[:, 2] + 0.3), (x[:, 2] % 7) / 7.0], axis=1)
+    return f.astype(np.float32)
+
+
+def make_lidar_sweep(
+    seed: int,
+    n_frames: int,
+    resolution: int = 32,
+    capacity: int = 1024,
+    *,
+    step: int = 4,
+    churn: float = 0.05,
+    fill: float = 0.6,
+):
+    """Synthetic LiDAR sweep: an ego window sliding over a persistent world.
+
+    A static "world" corridor of voxels (span ``resolution + step *
+    (n_frames-1)`` along x) is sampled once from ``seed``; frame *i* sees
+    the window ``[i*step, i*step + resolution)`` re-based to the ego frame
+    (world x minus ``i*step``). Two churn mechanisms perturb the static
+    picture per frame: a ``churn`` fraction of visible world voxels is
+    dropped (occlusion / dynamic objects leaving) and a matching number of
+    frame-local voxels appears. Steady-state voxel overlap between
+    consecutive frames is roughly ``(1 - step/resolution) * (1-churn)^2``
+    — tune ``step`` and ``churn`` to sweep it.
+
+    Active voxels land on *random rows* each frame (no canonical order),
+    so consumers exercise the streaming planner's row re-packing. Features
+    are a deterministic function of *world* position (retained voxels are
+    bit-identical across frames); labels likewise. Everything derives from
+    ``seed``.
+
+    ``step`` should stay divisible by ``2**(n_levels-1)`` of the consuming
+    U-Net (the default 4 covers 3 levels) — an unaligned ego shift makes
+    the incremental planner fall back to full rebuilds.
+
+    Returns ``(frames, ego_shifts)``: ``frames[i] = (coords (V,3) int32,
+    feats (V,4) f32, labels (V,) int32, mask (V,))`` with ``V=capacity``,
+    and ``ego_shifts[i]`` the ego translation since frame *i-1*
+    (``(0,0,0)`` for frame 0).
+    """
+    if n_frames < 1:
+        raise ValueError(f"n_frames must be >= 1, got {n_frames}")
+    rng = np.random.default_rng(seed)
+    span = resolution + step * (n_frames - 1)
+    total = span * resolution * resolution
+    n_world = min(int(fill * capacity * span / resolution), total)
+    wkeys = np.sort(rng.choice(total, size=n_world, replace=False))
+    wx = (wkeys // (resolution * resolution)).astype(np.int64)
+
+    def decode(keys):
+        r = resolution
+        return np.stack([keys // (r * r), (keys // r) % r, keys % r],
+                        axis=1).astype(np.int64)
+
+    frames = []
+    ego_shifts = []
+    for i in range(n_frames):
+        f_rng = np.random.default_rng((seed, 1000 + i))
+        x0 = i * step
+        vis = wkeys[(wx >= x0) & (wx < x0 + resolution)]
+        keep = f_rng.random(len(vis)) >= churn
+        statics = vis[keep]
+        # frame-local appearances: window cells outside the static world
+        n_dyn = int(round(churn * len(vis)))
+        cand = (f_rng.integers(x0, x0 + resolution, size=4 * n_dyn + 8)
+                * resolution * resolution
+                + f_rng.integers(0, resolution * resolution,
+                                 size=4 * n_dyn + 8))
+        cand = np.unique(cand)
+        cand = cand[~np.isin(cand, wkeys)][:n_dyn]
+        keys = np.concatenate([statics, cand])
+        if len(keys) > capacity:
+            keys = keys[np.sort(f_rng.choice(len(keys), size=capacity,
+                                             replace=False))]
+        wc = decode(keys)
+        n = len(keys)
+        rows = f_rng.choice(capacity, size=n, replace=False)
+        coords = np.full((capacity, 3), PAD_COORD, np.int32)
+        feats = np.zeros((capacity, N_FEATURES), np.float32)
+        labels = np.zeros((capacity,), np.int32)
+        mask = np.zeros((capacity,), bool)
+        ego = wc.copy()
+        ego[:, 0] -= x0
+        coords[rows] = ego.astype(np.int32)
+        feats[rows] = _world_feats(wc)
+        labels[rows] = (wc.sum(axis=1) % N_CLASSES).astype(np.int32)
+        mask[rows] = True
+        frames.append((coords, feats, labels, mask))
+        ego_shifts.append((step, 0, 0) if i else (0, 0, 0))
+    return frames, ego_shifts
 
 
 def scene_batch_iterator(seed: int, batch: int, resolution: int, capacity: int):

@@ -7,7 +7,8 @@ to the card (``upload_scene_plan``), then run the U-Net with
 that ``apply_unet`` runs in one pass. ``PlanCache`` memoizes plans by scene
 content, and an ``ExecutionContext`` holds the device, the registry and the
 cache that serving shares. A standalone conv site gets its tiled plan from
-``conv_plan_for_layer``.
+``conv_plan_for_layer``; a LiDAR stream patches each frame's plan from the
+previous one's through ``StreamPlanState``.
 """
 from repro_torch.engine.api import (
     apply_unet,
@@ -43,6 +44,7 @@ from repro_torch.engine.plan import (
     PlanSpec,
     ScenePlan,
     SignatureFamily,
+    StreamPlanState,
     TileArrays,
     build_plan_spec,
     build_scene_plan,
@@ -62,7 +64,8 @@ __all__ = [
     "AUTO", "DEFAULT_REGISTRY", "REFERENCE", "SSPNNA", "Backend",
     "BackendRegistry", "ConvPlan", "Dispatch", "ExecutionContext",
     "LevelPlan", "PlanCache", "PlanSpec", "ReferenceBackend",
-    "SSpNNABackend", "ScenePlan", "SignatureFamily", "TileArrays",
+    "SSpNNABackend", "ScenePlan", "SignatureFamily", "StreamPlanState",
+    "TileArrays",
     "apply_unet", "available_backends", "build_plan_spec",
     "build_scene_plan", "build_scene_plan_host", "build_signature_family",
     "choose_buckets", "conv_block", "conv_plan_for_layer",

@@ -8,13 +8,16 @@ whose plan carries no tile tables (the down and up convs, plane-split
 plans) runs on ``reference``. ``run`` takes the JAX package's
 ``use_kernel`` keyword: ``sspnna`` with ``use_kernel=False`` runs the
 pre-gathered oracle branch of ``run_sspnna_conv`` (the caller's explicit
-choice, never a fallback); ``reference`` ignores it.
+choice, never a fallback); ``reference`` ignores it. ``resolve`` carries
+the ``backend_resolve`` seam of the ambient fault injector
+(``serving.faults``).
 """
 from __future__ import annotations
 
 from repro_torch.core.sparse_conv import SparseConvParams, reference_conv_cirf
 from repro_torch.engine.plan import REFERENCE, SSPNNA, ConvPlan
 from repro_torch.kernels.sspnna.ops import run_sspnna_conv
+from repro_torch.serving import faults
 
 AUTO = "auto"
 
@@ -76,6 +79,9 @@ class BackendRegistry:
         the plan degrades along its declared ``fallback`` chain."""
         if backend == AUTO:
             backend = plan.dispatch.backend
+        inj = faults.active()
+        if inj is not None:
+            inj.maybe_fail("backend_resolve", key=backend)
         impl = self.get(backend)
         seen = {backend}
         while not impl.supports(plan):

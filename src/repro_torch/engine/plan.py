@@ -1,5 +1,5 @@
 """Scene plans: the engine's unit of metadata building and caching (port
-of ``repro.engine.plan``; streaming plans come with slice 6).
+of ``repro.engine.plan``).
 
 A ``ScenePlan`` bundles everything the paper builds before running a layer,
 per input scene: per-level COIR metadata (the AdMAC pass), the SOAR row
@@ -22,11 +22,14 @@ Two plan-building modes:
 
 ``PlanCache`` keys plans by scene content, config and build mode, builds
 each at most once across threads, and memoizes its device upload.
+``StreamPlanState`` plans a LiDAR stream frame by frame, patching the
+previous frame's host plan instead of rebuilding it.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, replace
 from typing import Any, NamedTuple
@@ -34,11 +37,12 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.analysis.runtime import ordered_lock
+from repro_torch.analysis.runtime import ordered_condition, ordered_lock
 from repro_torch.core import spade
 from repro_torch.core.coir import COIR
 from repro_torch.core.hashgrid import kernel_offsets
 from repro_torch.core.host_meta import (
+    StreamMetaState,
     build_cirf_np,
     downsample_coords_np,
     transposed_coir_np,
@@ -46,6 +50,7 @@ from repro_torch.core.host_meta import (
 from repro_torch.core.soar import raster_order, soar_order
 from repro_torch.core.tiles import build_tile_plan, dma_tile_tables, max_tiles
 from repro_torch.device import host_array, require_device
+from repro_torch.serving import faults
 from repro_torch.sparse.tensor import SparseVoxelTensor, compact_to_capacity
 
 REFERENCE = "reference"
@@ -63,9 +68,9 @@ _SLICE_7 = "ROADMAP.md, queue 1, slice 7 (self-tuning and hardening)"
 
 
 def _fault_injector():
-    """The ambient serving-layer fault injector: none until the port
-    carries ``serving.faults``' injector (slice 7)."""
-    return None
+    """The ambient serving-layer fault injector (``serving.faults``), if
+    one is installed."""
+    return faults.active()
 
 
 @dataclass(frozen=True)
@@ -779,3 +784,204 @@ def upload_scene_plan(plan: ScenePlan, device: str | torch.device = "cuda"
     dtypes: int32 tables, bool masks, uint32 bitmasks)."""
     dev = require_device(device)
     return _map_leaves(plan, lambda x: torch.as_tensor(np.asarray(x), device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Streaming plans
+# ---------------------------------------------------------------------------
+
+class StreamPlanState:
+    """Per-stream incremental planner: cached host plan + device buffers.
+
+    One instance per LiDAR stream. ``plan_frame`` diffs each frame against
+    the stream's cached previous frame (``core.host_meta.StreamMetaState``),
+    patches the host plan's metadata tables instead of rebuilding them, and
+    reuses the previous frame's ``ConvPlan`` objects outright for levels the
+    delta did not touch. A changed level reruns its ordering, tiles and
+    dispatch (``_assemble_level``), as in the JAX package. Every frame's
+    host plan is also registered in the shared :class:`PlanCache` under a
+    version key (``stream|<id>|...|f<frame_no>``) so stream plans live under
+    the same LRU budget as one-shot plans.
+
+    Frames must be planned in order; ``plan_frame`` blocks until the
+    previous frame of this stream has been planned. If the wait exceeds
+    ``wait_s`` (a predecessor was shed or errored), the frame is planned as
+    a full rebuild so a lost frame can never wedge the stream.
+
+    ``device_plan`` uploads to ``device`` (the card unless the caller says
+    otherwise) and memoizes uploads per leaf *identity*: unchanged tables
+    keep their device tensors across frames, so a patched frame uploads
+    only the arrays that changed (``last_upload`` counts them). It is not
+    thread-safe — call it from a single dispatch thread (as
+    ``serving.scene_engine`` does).
+    """
+
+    def __init__(self, cfg, *, cache: PlanCache | None = None,
+                 spec: PlanSpec | None = None,
+                 plan_tiles: bool | None = None,
+                 mem_budget: int = 64 * 1024, order: str = "soar",
+                 soar_chunk: int = 512, min_overlap: float = 0.5,
+                 stream_id: str | None = None, topology: str | None = None,
+                 wait_s: float = 5.0,
+                 device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.cache = cache if cache is not None else PlanCache()
+        self.spec = spec
+        self.plan_tiles = (spec is not None) if plan_tiles is None \
+            else bool(plan_tiles)
+        self.mem_budget = mem_budget
+        self.order = order
+        self.soar_chunk = soar_chunk
+        self.min_overlap = float(min_overlap)
+        self.wait_s = float(wait_s)
+        self.device = torch.device(device)
+        self.stream_id = stream_id if stream_id is not None \
+            else f"s{id(self):x}"
+        self._tag = (f"stream|{self.stream_id}|v{_PLAN_VERSION}"
+                     f"|top={topology}|{cfg!r}|spec={spec is not None}"
+                     f"|tiles={self.plan_tiles}|{order}|{soar_chunk}")
+        self.meta = StreamMetaState(cfg.resolution, cfg.capacity,
+                                    len(cfg.widths))
+        self._cond = ordered_condition("stream.plan")
+        self._next_frame = 0
+        self._gap = False
+        self._prev_plan: ScenePlan | None = None
+        self._memo: dict = {}
+        #: bytes and leaves the last ``device_plan`` copied, of the plan's
+        self.last_upload: dict = {}
+        self.counts = {"reused": 0, "patched": 0, "rebuilt": 0}
+        self._overlap_sum = 0.0
+        self._plan_ms_sum = 0.0
+
+    # -- planning ----------------------------------------------------------
+
+    def plan_frame(self, t: SparseVoxelTensor, frame_no: int,
+                   ego_shift=(0, 0, 0)) -> tuple[str, ScenePlan, np.ndarray,
+                                                 dict]:
+        """Plan one stream frame; returns ``(key, host_plan, frame_rows,
+        info)``. ``frame_rows`` maps the caller's rows into the stream's
+        canonical layout (feed it to ``pack_stream_frame_np`` for features
+        and to scatter per-row results back out)."""
+        with self._cond:
+            deadline = time.monotonic() + self.wait_s
+            while self._next_frame < frame_no:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(remaining)
+            try:
+                t0 = time.perf_counter()
+                if self._next_frame != frame_no or self._gap:
+                    # gap in the stream (shed/failed predecessor, or an
+                    # out-of-order replay): the cached delta base is stale
+                    self.meta.n = None
+                self._gap = False
+                meta = self.meta.step(host_array(t.coords),
+                                      host_array(t.mask), ego_shift,
+                                      min_overlap=self.min_overlap)
+                plan = self._assemble(meta)
+                plan_ms = (time.perf_counter() - t0) * 1e3
+                self._prev_plan = plan
+                self.counts[meta.mode] += 1
+                self._overlap_sum += meta.overlap
+                self._plan_ms_sum += plan_ms
+                key = f"{self._tag}|f{frame_no}"
+                self.cache.adopt(key, plan, device=False)
+                info = {"mode": meta.mode, "overlap": meta.overlap,
+                        "plan_ms": plan_ms,
+                        "n_active": meta.info.get("n_active")}
+                if "fallback" in meta.info:
+                    info["fallback"] = meta.info["fallback"]
+                return key, plan, meta.frame_rows, info
+            finally:
+                self._next_frame = max(self._next_frame, frame_no + 1)
+                self._cond.notify_all()
+
+    def skip_frame(self, frame_no: int) -> None:
+        """Mark a shed/failed frame so its successors stop waiting for it.
+
+        The serving layer calls this when admission sheds a stream frame
+        (deadline/overload): the next planned frame rebuilds from scratch
+        — its delta base, and the reference point of the caller's
+        ``ego_shift``, is the frame that never arrived."""
+        with self._cond:
+            if frame_no >= self._next_frame:
+                self._gap = True
+                self._next_frame = frame_no + 1
+                self._cond.notify_all()
+
+    def _assemble(self, meta) -> ScenePlan:
+        prev = self._prev_plan
+        if meta.mode == "reused" and prev is not None:
+            return prev
+        n_levels = self.meta.n_levels
+        levels: list[LevelPlan] = []
+        stats: list[dict] = []
+        for li in range(n_levels):
+            coords, mask, sub_coir = meta.levels[li]
+            if prev is not None and not meta.changed[li]:
+                # untouched level: identical tables => identical ordering,
+                # tiles and dispatch; reuse the ConvPlan object wholesale
+                sub = prev.levels[li].sub
+                info = dict(prev.stats[li]) if prev.stats else {"level": li}
+            else:
+                sub, info = _assemble_level(
+                    sub_coir, coords, mask, li, self.cfg, spec=self.spec,
+                    plan_tiles=self.plan_tiles, mem_budget=self.mem_budget,
+                    order=self.order, soar_chunk=self.soar_chunk)
+            down = up = None
+            if li < n_levels - 1:
+                if prev is not None and not meta.pair_changed[li]:
+                    down = prev.levels[li].down
+                    up = prev.levels[li].up
+                else:
+                    down_coir, up_coir = meta.pairs[li]
+                    down = ConvPlan(down_coir)
+                    up = ConvPlan(up_coir)
+            levels.append(LevelPlan(coords, mask, sub, down, up))
+            stats.append(info)
+        return ScenePlan(tuple(levels), stats)
+
+    # -- device upload with per-leaf memoization ---------------------------
+
+    def device_plan(self, host_plan: ScenePlan) -> ScenePlan:
+        """Upload a stream host plan to the state's device, reusing the
+        device tensors of leaves that are the *same array object* as the
+        previous frame's (patched frames share every untouched table).
+        Single-threaded by contract."""
+        dev = require_device(self.device)
+        new_memo: dict = {}
+        old_memo = self._memo
+        sent = {"bytes": 0, "leaves": 0, "of_bytes": 0, "of_leaves": 0}
+
+        def convert(x):
+            k = id(x)
+            hit = new_memo.get(k) or old_memo.get(k)
+            # the identity check keeps a recycled id() from returning
+            # another array's tensor
+            if hit is None or hit[0] is not x:
+                hit = (x, torch.as_tensor(np.asarray(x), device=dev))
+                sent["bytes"] += hit[1].nbytes
+                sent["leaves"] += 1
+            if k not in new_memo:
+                sent["of_bytes"] += hit[1].nbytes
+                sent["of_leaves"] += 1
+            new_memo[k] = hit
+            return hit[1]
+
+        out = _map_leaves(host_plan, convert)
+        self._memo = new_memo
+        self.last_upload = sent
+        return out
+
+    # -- stats -------------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Aggregate per-stream reuse counters (for ``WaveStats.notes``)."""
+        frames = sum(self.counts.values())
+        return {
+            "frames": frames,
+            **self.counts,
+            "mean_overlap": self._overlap_sum / max(frames, 1),
+            "mean_plan_ms": self._plan_ms_sum / max(frames, 1),
+        }

@@ -12,7 +12,8 @@ Capture runs on a side stream with ``capture_error_mode="thread_local"``:
 another thread of the process (the previous wave's drain reading its
 result back) may call CUDA while this one captures. The caller warms the
 function up eagerly first, so that libraries load and workspaces exist
-before capture.
+before capture. A capture collects garbage first and runs with the
+collector off: a dead engine's graph freed mid-capture would invalidate it.
 
 A replay runs kernels without calling their Python wrappers, so it ticks
 no launch counter (``sspnna_fused.launches`` and the others). ``Graphs``
@@ -23,6 +24,7 @@ launches that replays ran. A path's launches are its counters' ticks, less
 """
 from __future__ import annotations
 
+import gc
 from collections import Counter
 
 import torch
@@ -71,9 +73,20 @@ class Graphs:
             raise ValueError(f"graph {key!r} is already captured")
         graph = torch.cuda.CUDAGraph()
         before = _counts()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
-            out = fn()
+        # An engine dropped in a reference cycle (its scheduler holds its
+        # bound stages) keeps its graphs until the collector runs; freeing
+        # a graph's memory during this capture would invalidate it. So
+        # collect first, and keep the collector off while capturing.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         launched = _counts() - before
         self.captured += launched
         self._graphs[key] = (graph, out, launched)

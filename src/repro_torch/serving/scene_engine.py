@@ -1,6 +1,6 @@
 """Batched 3D-scene serving: fixed-capacity slots, cached plans, one CUDA
 graph per capacity bucket (port of ``repro.serving.scene_engine``; the
-streaming and sharded modes come with later slices).
+sharded mode comes with a later slice).
 
 The 3D face of the shared ``serving.scheduler.WaveScheduler``: the host
 packs up to ``batch`` scene requests per wave, builds (or cache-hits) each
@@ -17,6 +17,21 @@ backend registry and the default admission policy. Two modes:
   over every bucket is shed with reason ``"capacity"``); the plan stage
   re-packs it to that capacity, admission fills each wave from one bucket,
   and the drain scatters the logits back to the request's rows.
+
+On top of the batched mode, ``open_stream()`` / ``serve_stream()`` serve
+LiDAR sweeps: frames submitted through a :class:`StreamHandle` are planned
+*incrementally* (``engine.StreamPlanState``): each frame diffs against the
+stream's previous frame after ego-motion re-basing and patches the cached
+host plan's tables instead of rebuilding them, with a full rebuild under
+heavy churn or after a lost frame. Admission keeps a stream's frames in
+order while the policy still arbitrates between streams and one-shot
+requests. A frame's plan is uploaded through its stream's per-leaf memo
+(only the tables the delta touched are copied), its features are re-packed
+into the stream's canonical rows, and its wave runs the same bucket graph
+as one-shot scenes of that capacity; the drain scatters the logits back to
+the caller's rows. Each wave's ``WaveStats.notes`` counts
+``stream_reused`` / ``stream_patched`` / ``stream_rebuilt`` frames, with
+the mean ``stream_overlap`` and the summed ``stream_plan_ms``.
 
 The wave forward is the counterpart of the JAX package's ``vmap`` over
 stacked plans: the B plans are concatenated (``engine.stack_plans``) and
@@ -44,13 +59,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.device import require_device
+from repro_torch.analysis.runtime import ordered_lock
+from repro_torch.core.host_meta import pack_stream_frame_np
+from repro_torch.device import host_array, require_device
 from repro_torch.engine import api as engine_api
 from repro_torch.engine.context import ExecutionContext
 from repro_torch.engine.plan import (
     PlanCache,
     PlanSpec,
     SignatureFamily,
+    StreamPlanState,
     plan_signature,
     stack_plans,
 )
@@ -72,6 +90,75 @@ class SceneRequest(ServeRequest):
     done: bool = False
 
 
+@dataclass
+class StreamFrameRequest(SceneRequest):
+    """One frame of an open LiDAR stream (made by ``StreamHandle.submit``).
+
+    Carries the stream handle, its monotonically assigned ``frame_no`` and
+    the ``ego_shift`` from the previous frame. After serving, ``logits`` /
+    ``pred`` are in the *caller's* row layout (the drain stage scatters the
+    stream's canonical rows back through ``frame_rows``), and
+    ``plan_info`` records how the frame was planned: ``mode`` in
+    {``reused``, ``patched``, ``rebuilt``}, voxel ``overlap`` fraction with
+    the previous frame, host ``plan_ms``, and the bytes its upload copied
+    (``upload``, from ``StreamPlanState.last_upload``). ``plan_key`` is the
+    frame's host plan's key in the engine's ``PlanCache``."""
+
+    stream: "StreamHandle | None" = None
+    frame_no: int = -1
+    ego_shift: tuple = (0, 0, 0)
+    plan_info: dict | None = None
+    plan_key: str | None = None
+
+    # scheduler hooks: per-stream FIFO admission keys
+    @property
+    def _stream_key(self):
+        return None if self.stream is None else self.stream.stream_id
+
+    @property
+    def _stream_frame(self) -> int:
+        return self.frame_no
+
+
+class StreamHandle:
+    """Client view of one open stream on a :class:`SceneEngine`.
+
+    ``submit(scene, ego_shift)`` queues the stream's next frame (frame
+    numbers are assigned monotonically; admission keeps them FIFO within
+    the stream even under an urgency policy) and returns the usual
+    :class:`~repro_torch.serving.api.RequestHandle`. ``stats()`` reports
+    the stream's plan-reuse counters."""
+
+    def __init__(self, engine: "SceneEngine", state: StreamPlanState):
+        self.engine = engine
+        self.state = state
+        self._next_frame = 0
+        self._lock = ordered_lock("stream.handle")
+
+    @property
+    def stream_id(self) -> str:
+        return self.state.stream_id
+
+    def submit(self, scene: SparseVoxelTensor, ego_shift=(0, 0, 0), *,
+               rid: int | None = None, **slo):
+        """Queue the next frame of this stream; ``ego_shift`` is the ego
+        translation (in voxels) since the *previous* submitted frame.
+        SLO kwargs (tenant/priority/deadline_ms) pass through."""
+        with self._lock:
+            frame_no = self._next_frame
+            self._next_frame += 1
+        req = StreamFrameRequest(
+            rid=frame_no if rid is None else rid, scene=scene,
+            stream=self, frame_no=frame_no, ego_shift=tuple(ego_shift),
+            **slo)
+        return self.engine.submit(req)
+
+    def stats(self) -> dict:
+        """Aggregate plan-reuse stats: frames, reused/patched/rebuilt
+        counts, mean overlap, mean host plan ms."""
+        return self.state.stats()
+
+
 class SceneEngine(ServingBase):
     """Host-side batched scene driver (fixed shapes, plan-cached).
 
@@ -80,7 +167,8 @@ class SceneEngine(ServingBase):
     ``spec=build_plan_spec(rep_scenes, cfg)`` to serve SPADE's
     reference/SSpNNA mix at pinned tile budgets, or
     ``family=build_signature_family(rep_scenes, cfg)`` for bucketed
-    serving. ``use_kernel`` (default on, as ``apply_unet``'s) runs tiled
+    serving; ``open_stream`` serves LiDAR streams on the batched mode.
+    ``use_kernel`` (default on, as ``apply_unet``'s) runs tiled
     convs through the fused kernel. The engine serves on ``ctx.device``
     (the card unless the context says otherwise; without ``ctx`` the
     card). ``sync`` / ``depth`` / ``planner_threads`` / ``policy`` default
@@ -136,6 +224,7 @@ class SceneEngine(ServingBase):
         # bucket capacity -> the plan signature its forward is held to and,
         # on the card, the buffers its graph reads
         self._buckets: dict[int, dict] = {}
+        self._streams: dict[str, StreamHandle] = {}
         self.graphs = Graphs(self.device) if self.device.type == "cuda" else None
         self.scheduler = WaveScheduler(
             batch=batch, plan=self._plan_stage, dispatch=self._dispatch_stage,
@@ -147,6 +236,7 @@ class SceneEngine(ServingBase):
             policy=ctx.admission if policy is None else policy,
             bucket_of=((lambda r: getattr(r, "_bucket", None))
                        if family is not None else None),
+            on_shed=self._on_shed,
             faults=faults)
 
     # -- introspection -------------------------------------------------------
@@ -158,15 +248,65 @@ class SceneEngine(ServingBase):
         eager forward is held to."""
         return len(self._buckets)
 
-    # -- streaming (slice 6) -------------------------------------------------
+    # -- streaming -----------------------------------------------------------
 
-    def open_stream(self, *args, **kw):
-        raise NotImplementedError(
-            "streams come with ROADMAP.md, queue 1, slice 6 (streaming)")
+    def open_stream(self, stream_id: str | None = None, *,
+                    min_overlap: float = 0.5,
+                    wait_s: float = 5.0) -> StreamHandle:
+        """Open a LiDAR stream: frames submitted through the returned
+        :class:`StreamHandle` are planned *incrementally* — each frame
+        diffs against the previous one (after ``ego_shift`` re-basing) and
+        patches the cached host plan instead of rebuilding it, falling back
+        to a full rebuild when voxel overlap drops below ``min_overlap``.
+        Streams need the fixed-capacity batched mode: ``family=`` re-packs
+        rows per bucket, which a per-stream canonical row layout cannot
+        follow."""
+        if self.family is not None:
+            raise ValueError(
+                "open_stream needs the fixed-capacity batched mode; "
+                "family= engines cannot serve streams")
+        if stream_id is not None and stream_id in self._streams:
+            raise ValueError(f"stream {stream_id!r} is already open")
+        state = StreamPlanState(
+            self.cfg, cache=self.cache, spec=self.spec,
+            plan_tiles=self._plan_kw["plan_tiles"],
+            order=self._plan_kw["order"],
+            soar_chunk=self._plan_kw["soar_chunk"],
+            min_overlap=min_overlap, stream_id=stream_id,
+            topology=self._topology, wait_s=wait_s, device=self.device)
+        handle = StreamHandle(self, state)
+        self._streams[state.stream_id] = handle
+        return handle
 
-    def serve_stream(self, *args, **kw):
-        raise NotImplementedError(
-            "streams come with ROADMAP.md, queue 1, slice 6 (streaming)")
+    def serve_stream(self, frames, ego_shifts=None, *,
+                     stream: StreamHandle | None = None,
+                     min_overlap: float = 0.5,
+                     **slo) -> list[StreamFrameRequest]:
+        """Serve a whole sweep through one stream: submit every frame in
+        order (``ego_shifts[i]`` is frame *i*'s ego translation since
+        frame *i−1*), pump the queue, and return the fulfilled requests.
+        Pass ``stream=`` to continue an already-open stream; otherwise a
+        fresh one is opened with ``min_overlap``."""
+        frames = list(frames)
+        if ego_shifts is None:
+            ego_shifts = [(0, 0, 0)] * len(frames)
+        ego_shifts = [tuple(s) for s in ego_shifts]
+        if len(ego_shifts) != len(frames):
+            raise ValueError(
+                f"{len(frames)} frames but {len(ego_shifts)} ego_shifts")
+        if stream is None:
+            stream = self.open_stream(min_overlap=min_overlap)
+        handles = [stream.submit(t, shift, **slo)
+                   for t, shift in zip(frames, ego_shifts)]
+        self.serve()
+        return [h.result() for h in handles]
+
+    def _on_shed(self, req) -> None:
+        # a shed (or terminally failed) stream frame must not wedge its
+        # successors: advance the stream's frame gate (the next planned
+        # frame rebuilds)
+        if isinstance(req, StreamFrameRequest) and req.stream is not None:
+            req.stream.state.skip_frame(req.frame_no)
 
     # -- admission -----------------------------------------------------------
 
@@ -187,9 +327,36 @@ class SceneEngine(ServingBase):
 
     def _plan_stage(self, req: SceneRequest):
         """Host plan build (numpy leaves) on a planner thread. The payload
-        carries the cache key, so dispatch never re-hashes the scene.
-        Bucketed mode re-packs the scene to its bucket first (active rows in
-        their order) and keeps the row mapping for the drain."""
+        ``(key, host plan, features, stream state or None)`` carries the
+        cache key, so dispatch never re-hashes the scene. Bucketed mode
+        re-packs the scene to its bucket first (active rows in their order)
+        and keeps the row mapping for the drain.
+
+        Stream frames take the incremental path: ``StreamPlanState`` blocks
+        until the stream's previous frame has been planned, diffs against
+        it, and patches (or reuses) the cached host plan; features are
+        re-packed into the stream's canonical row layout here so dispatch
+        stays a plain upload."""
+        if isinstance(req, StreamFrameRequest):
+            scene = req.scene
+            inj = self.scheduler.faults
+            if inj is not None:
+                # corrupt-frame seam: scribble garbage over the frame's
+                # coords before planning — exercises the stream's
+                # gap/rebuild recovery (and plan-stage containment when
+                # the corruption makes the build raise)
+                coords = host_array(scene.coords)
+                corrupted = inj.corrupt_coords(coords, rid=req.rid)
+                if corrupted is not coords:
+                    scene = SparseVoxelTensor(corrupted, scene.feats,
+                                              scene.mask)
+            state = req.stream.state
+            key, plan, frame_rows, info = state.plan_frame(
+                scene, req.frame_no, req.ego_shift)
+            req.plan_info, req.plan_key = info, key
+            req._frame_rows = frame_rows
+            feats = pack_stream_frame_np(frame_rows, host_array(scene.feats))
+            return key, plan, feats, state
         if self.family is not None:
             cap = req._bucket
             scene, req._active_idx = compact_to_capacity(req.scene, cap)
@@ -200,14 +367,21 @@ class SceneEngine(ServingBase):
                                  **plan_kw)
         plan = self.cache.get_or_build(scene, cfg, device=False, key=key,
                                        **plan_kw)
-        return key, plan, scene.feats
+        return key, plan, scene.feats, None
 
     @torch.inference_mode()
     def _dispatch_stage(self, reqs: list[SceneRequest], payloads, stats):
         # the plan stage built (and counted) these host plans; adopt fetches
-        # the memoized upload without rebuilding or counting
-        plans = [self.cache.adopt(key, host, device=self.device)
-                 for key, host, _ in payloads]
+        # the memoized upload without rebuilding or counting. Stream frames
+        # upload through their StreamPlanState's per-leaf identity memo
+        # instead, so a patched frame copies only the tables it changed.
+        plans = []
+        for r, (key, host, _, state) in zip(reqs, payloads):
+            if state is None:
+                plans.append(self.cache.adopt(key, host, device=self.device))
+            else:
+                plans.append(state.device_plan(host))
+                r.plan_info["upload"] = dict(state.last_upload)
         for r, p in zip(reqs, plans):
             over = [s["level"] for s in p.stats or () if s.get("tile_overflow")]
             if over:
@@ -226,9 +400,19 @@ class SceneEngine(ServingBase):
             cap = caps.pop()
         else:
             cap = self.cfg.capacity
+        s_infos = [r.plan_info for r in reqs
+                   if isinstance(r, StreamFrameRequest)]
+        if s_infos:
+            for mode in ("reused", "patched", "rebuilt"):
+                stats.notes[f"stream_{mode}"] = sum(
+                    1 for i in s_infos if i["mode"] == mode)
+            stats.notes["stream_overlap"] = float(
+                sum(i["overlap"] for i in s_infos) / len(s_infos))
+            stats.notes["stream_plan_ms"] = float(
+                sum(i["plan_ms"] for i in s_infos))
         dtype = self.model.head.w.dtype
         feats = [torch.as_tensor(f, dtype=dtype, device=self.device)
-                 for _, _, f in payloads]
+                 for _, _, f, _ in payloads]
         return self.run_wave(feats, plans, cap, rids=[r.rid for r in reqs],
                              notes=stats.notes)
 
@@ -294,7 +478,16 @@ class SceneEngine(ServingBase):
         logits = logits.cpu().numpy()
         logits = logits.reshape(self.batch, -1, logits.shape[-1])
         for i, r in enumerate(reqs):
-            if self.family is not None:
+            if isinstance(r, StreamFrameRequest):
+                # scatter the stream's canonical rows back to the caller's
+                # row positions (inactive rows stay zero-logit)
+                fr = r._frame_rows
+                out = np.zeros((r.scene.capacity, logits.shape[-1]),
+                               logits.dtype)
+                act = fr >= 0
+                out[act] = logits[i][fr[act]]
+                r.logits = out
+            elif self.family is not None:
                 # scatter the bucket's rows back to the request's rows
                 # (padding rows stay zero-logit)
                 idx = r._active_idx

@@ -764,6 +764,104 @@ def test_scene_engine_graph_replay_matches_eager_wave(cuda_device):
     assert eng.graphs.replays == 2 and len(eng.graphs) == 1
 
 
+@pytest.mark.cuda
+def test_scene_engine_streams_through_the_bucket_graph(cuda_device):
+    """Two interleaved LiDAR streams on a pinned spec, served on the card:
+    every wave (one frame of each stream) is a replay of the bucket's one
+    graph, which runs sspnna_fused; a one-shot scene afterwards replays the
+    same graph; each frame's logits match its own ``apply_unet`` on the
+    from-scratch plan of the re-packed frame within 1e-4; and a pipelined
+    serve on another engine gives the same bits."""
+    from repro_torch.core.host_meta import pack_stream_frame_np
+    from repro_torch.data.scenes import make_lidar_sweep
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    cfg = SCN_SERVE_CFG
+    sweeps = [make_lidar_sweep(s, 3, resolution=32, capacity=4096, step=4)
+              for s in (0, 1)]
+    spec = engine.build_plan_spec(
+        [SparseVoxelTensor(*(sw[0][0][i] for i in (0, 1, 3)))
+         for sw in sweeps], cfg)
+    model = SCNUNet(cfg, device=cuda_device)
+
+    def serve(sync):
+        eng = SceneEngine(cfg, model, 2, spec=spec, sync=sync,
+                          planner_threads=2,
+                          ctx=engine.ExecutionContext(device=cuda_device))
+        streams = [eng.open_stream(f"s{i}") for i in range(2)]
+        handles = [[], []]
+        for fno in range(3):
+            for i, (frames, shifts) in enumerate(sweeps):
+                c, f, _, m = frames[fno]
+                handles[i].append(streams[i].submit(
+                    SparseVoxelTensor(c, f, m), shifts[fno]))
+        eng.serve()
+        eng.close()
+        return eng, [[h.result() for h in hs] for hs in handles]
+
+    eng, by_sync = serve(True)
+    assert len(eng.graphs) == 1 and eng.graphs.replays == 3
+    per_replay = eng.graphs.launches(cfg.capacity)["sspnna_fused"]
+    assert per_replay > 0
+    assert eng.graphs.replayed["sspnna_fused"] == 3 * per_replay
+    for rs in by_sync:
+        assert [r.plan_info["mode"] for r in rs] == \
+            ["rebuilt", "patched", "patched"]
+    for i, rs in enumerate(by_sync):
+        for r, (c, f, _, m) in zip(rs, sweeps[i][0]):
+            fr = r._frame_rows
+            act = np.flatnonzero(m)
+            pc = np.full_like(c, -1)
+            pm = np.zeros_like(m)
+            pc[fr[act]], pm[fr[act]] = c[act], True
+            plan = engine.build_scene_plan(SparseVoxelTensor(pc, f, pm), cfg,
+                                           spec=spec, device=cuda_device)
+            with torch.inference_mode():
+                own = engine.apply_unet(
+                    model, pack_stream_frame_np(fr, f), plan,
+                    device=cuda_device).cpu().numpy()
+            want = np.zeros_like(own)
+            want[fr >= 0] = own[fr[fr >= 0]]
+            err = np.abs(r.logits - want) / np.maximum(np.abs(want), 1.0)
+            assert float(err.max()) <= 1e-4, (i, r.frame_no)
+    # a one-shot scene of the same capacity replays the same graph
+    c, f, _, m = sweeps[0][0][0]
+    h = eng.submit(SceneRequest(99, SparseVoxelTensor(c, f, m)))
+    eng.serve()
+    assert h.result().logits.shape == (cfg.capacity, cfg.n_classes)
+    assert len(eng.graphs) == 1 and eng.graphs.replays == 4
+    _, by_async = serve(False)
+    for a_s, b_s in zip(by_sync, by_async):
+        for a, b in zip(a_s, b_s):
+            np.testing.assert_array_equal(a.logits, b.logits)
+
+
+@pytest.mark.cuda
+def test_graph_capture_survives_a_dead_engines_graphs(cuda_device):
+    """A ``Graphs`` dropped in a reference cycle (as a dropped engine's
+    are) is freed before the next capture, not during it: a collection
+    mid-capture that freed its graph would invalidate the capture."""
+    import gc
+
+    from repro_torch.serving.graphs import Graphs
+
+    x = torch.arange(8.0, device=cuda_device)
+    dead = Graphs(cuda_device)
+    dead.capture("a", lambda: x * 2)
+    cycle = [dead]
+    cycle.append(cycle)
+    del dead, cycle
+    live = Graphs(cuda_device)
+
+    def fn():
+        gc.collect()   # what the collector may do at any allocation
+        return x * 3
+
+    live.capture("b", fn)
+    np.testing.assert_array_equal(live.replay("b").cpu().numpy(),
+                                  np.arange(8.0) * 3)
+
+
 def _decode_cfg(arch):
     """Two layers at the published widths, in bf16 (Gemma-2's window cut to
     32 so a 40-token prompt fills its ring cache)."""
