@@ -60,7 +60,30 @@
    (1e-3); the wave is timed eagerly and as a graph replay (host clock,
    and device time with the busy share), each of its kernel launches held
    against the plain version and timed on the device.
-8. Serves two LiDAR sweeps (``make_lidar_sweep``, seeds 0-1, 4 frames of
+8. Tunes the SCN dispatch by measurement: for seed 0's adaptive plan, times
+   each level's submanifold conv through every registered backend
+   (``engine.measure_backends``: CUDA events, median of 5) beside the
+   level's shape signature, records the times in a ``CostTable``, builds
+   the plan again with ``autotune=`` the table (each level's analytical
+   backend against the tuned one), holds the tuned forward against
+   ``reference`` (1e-3) and times it against the analytical plan's, and
+   saves and reloads the table (``ok``; ``fingerprint-mismatch`` under
+   another card's fingerprint). Then a cold table records seed 0's
+   signatures as misses, a ``SceneEngine`` on the pinned spec serves seeds
+   0-2 with ``autotune_reprofile_ms`` set, and its idle hook profiles
+   every miss on synthetic workloads (``sspnna_fused`` launched outside
+   any graph); each synthetic winner is printed beside the real plan's.
+9. Trips a circuit breaker: a ``SceneEngine`` on the pinned spec (batch 2,
+   seeds 0-1, the board at 3 failures on a fake clock) serves a fault-free
+   wave, then three injected dispatch faults attributed to ``sspnna``: the
+   breaker opens once, the retried requests' plans are rerouted to
+   ``reference`` and run on a second graph without ``sspnna_fused``, their
+   logits within 1e-3 of a reference engine's. Past the cooldown seed 2
+   probes and closes the breaker (its generation bumps) and seeds 0-1
+   replay the ``sspnna`` graph again (1e-4 against the fault-free wave).
+   Times a rerouted wave against the ``sspnna`` graph's. Every phase that
+   injects no fault requires an empty breaker board and no wave error.
+10. Serves two LiDAR sweeps (``make_lidar_sweep``, seeds 0-1, 4 frames of
    ~78.6k voxels at resolution 256, ego step 8) as two streams through
    ``SceneEngine.open_stream`` with a spec pinned from their first frames,
    one frame of each stream a wave, blocking and then pipelined: modes
@@ -72,12 +95,12 @@
    (patched against from scratch), the sweep, a stream wave's replay (busy
    share) and its kernel launches (held against the plain version, beside
    their bound), and counts the bytes each frame's upload copied.
-9. Holds the flash attention kernel against its plain version on random
+11. Holds the flash attention kernel against its plain version on random
    q, k, v (``kernels/flash/ref.FLASH_CASES``: causal and not, sq < skv,
    windows, softcaps, D 32-256, f32 and bf16, GQA groups 1 and 2, ragged
    lengths, and the bf16 kernel's edges: many tiles at D=256, Sq=129, a
    window shorter than a tile, sq > skv, D=32).
-10. Drives the LM serving path: Gemma-2 2B at its published widths (26
+12. Drives the LM serving path: Gemma-2 2B at its published widths (26
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
    4096, softcaps 50 and 30), bf16, random weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``. An ``Engine`` (batch 2, prompt
@@ -87,7 +110,7 @@
    must be equal, and each wave's last-position logits must match the same
    weights with the attention's plain version, in f32 (the weights cast up)
    and in bf16 (first tokens equal).
-11. Replays every flash launch of one wave's prefill against the plain
+13. Replays every flash launch of one wave's prefill against the plain
    version and times kernel, plain version and bound; at the global-layer
    shape it also times the kernel without softcap beside
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
@@ -95,11 +118,11 @@
    token as eager steps against the serving engine's step graphs (one
    CUDA graph per step index, replayed by every wave), with the device's
    busy share; the two must emit the same tokens.
-12. Frees the Gemma path and holds the grouped expert GEMM kernel against
+14. Frees the Gemma path and holds the grouped expert GEMM kernel against
    its plain version (``kernels/moe_gemm/ref.MOE_GEMM_CASES``: the JAX
    test's shapes, ragged C, d and f, an expert with no valid row, C = 8,
    f32 and bf16 with both output dtypes).
-13. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
+15. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
    and depth (48 layers, d_model 2048, 16 heads of 128, 64 experts top-6 of
    d_ff 1408, vocab 163840; 27.7 B parameters), bf16, random weights drawn
    on the card. An ``Engine`` (batch 2, prompt length 4096, 16 new tokens)
@@ -109,12 +132,12 @@
    graph replays, counted by the engine), and both runs must emit the same
    tokens. Decode per token, eager steps against the step graphs, as for
    Gemma-2.
-14. Checks every expert-GEMM launch of one wave's prefill and of one decode
+16. Checks every expert-GEMM launch of one wave's prefill and of one decode
    step against the plain version at its real inputs; the last-position
    logits at full width and 4 layers against the plain expert products in
    f32 and bf16; and reports (ungated) the full-depth bf16 logits against
    the plain expert products, for which no f32 noise floor fits the card.
-15. Times the kernel at the path's four launch shapes beside its plain
+17. Times the kernel at the path's four launch shapes beside its plain
    version, ``torch.bmm`` (a yardstick the port never calls) and its bound,
    as one call (``time_ms``) and, kernel and ``torch.bmm``, on the device
    (``device_ms``);
@@ -175,6 +198,9 @@ LOGITS_TOL = 1e-3
 # reference convs' products), then a batch norm after every conv
 WAVE_TOL = 1e-4
 SEEDS = (0, 1, 2)
+# measured dispatch: samples a backend at each level (median of k), and the
+# idle hook's budget a tick (enough to profile every missed level at once)
+AUTOTUNE_K, REPROFILE_MS = 5, 120_000.0
 RESOLUTION, CAPACITY, POINTS_PER_UNIT = 256, 131072, 2e6
 # SCN streaming: two LiDAR sweeps of STREAM_FRAMES frames at the scene
 # path's resolution and capacity; an ego step of 8 voxels keeps the shift
@@ -387,6 +413,23 @@ class Phases:
             print(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s",
                   flush=True)
         self.name = None
+
+
+def only_graph(eng):
+    """The key of an engine's one captured graph."""
+    keys = eng.graphs.keys()
+    check(len(keys) == 1, f"{len(keys)} graphs where one was expected")
+    return keys[0]
+
+
+def check_no_breakers(eng) -> None:
+    """A phase that injects no fault: no breaker state and no contained
+    wave failure, so a real kernel or launch failure cannot hide behind a
+    fallback."""
+    states = eng.health()["breakers"]
+    check(states == {} and eng.scheduler.wave_errors == 0,
+          f"a fault-free serve recorded breaker states {states} and "
+          f"{eng.scheduler.wave_errors} wave errors")
 
 
 def sspnna_convs(plan, cfg) -> int:
@@ -941,7 +984,7 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
     }
 
 
-def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
+def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
     """Phase 7: SCN batched serving. Pins a spec from seeds 0-2, serves
     them as one wave of 3 through a ``SceneEngine``, blocking and then
     pipelined on the same context (the second serve hits the plan cache),
@@ -949,7 +992,8 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
     same pinned plans and against ``backend="reference"``, and times the
     wave eagerly and as the bucket's graph replay. Each ``sspnna_fused``
     launch of the wave is held against the plain version and timed on the
-    device. Returns the numbers for the kernel's JSON entry."""
+    device. Returns the numbers for the kernel's JSON entry, the spec, the
+    scenes and the blocking serve's wave logits."""
     from repro_torch import engine
     from repro_torch.data.scenes import make_scene
     from repro_torch.kernels.flash.flash import flash_attention
@@ -1001,9 +1045,10 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
                   f"{sum(x.plan_ms for x in st):.1f} ms; graphs "
                   f"{len(eng.graphs)}, replays {eng.graphs.replays}, "
                   f"sspnna_fused launches a replay "
-                  f"{eng.graphs.launches(cfg.capacity)['sspnna_fused']}")
+                  f"{eng.graphs.launches(only_graph(eng))['sspnna_fused']}")
             check(len(st) == 1 and eng.n_compilations == 1
                   and len(eng.graphs) == 1, "one wave, one graph expected")
+            check_no_breakers(eng)
             check(logits.shape == (len(scenes), CAPACITY, cfg.n_classes)
                   and bool(np.isfinite(logits).all()),
                   "wave logits not finite or of the wrong shape")
@@ -1093,7 +1138,7 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
         finally:
             ops.sspnna_fused = fused
         per_wave = len(calls) // (n + 1)
-        check(per_wave == eng.graphs.launches(cfg.capacity)["sspnna_fused"],
+        check(per_wave == eng.graphs.launches(only_graph(eng))["sspnna_fused"],
               "the graph records another number of launches than the eager "
               "wave makes")
         wave_dev = own_dev = bound = 0.0
@@ -1116,15 +1161,16 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
           f"forwards on the pinned plans {own_dev:.4f} ms; {dead} of the "
           f"wave's {tiles} tiles are dead (pinned budgets); max abs "
           f"{worst_abs:.3g} against the plain version")
-    return {"serving_launches": launched,
-            "wave_launches": per_wave,
-            "wave_device_ms": wave_dev,
-            "wave_bound_ms": bound,
-            "pinned_scenes_device_ms": own_dev,
-            "wave_max_abs_err": worst_abs,
-            "wave_dead_tiles": [dead, tiles],
-            "wave": times,
-            "scene": {"ms": one_ms, **one_busy}}
+    entry = {"serving_launches": launched,
+              "wave_launches": per_wave,
+             "wave_device_ms": wave_dev,
+             "wave_bound_ms": bound,
+             "pinned_scenes_device_ms": own_dev,
+             "wave_max_abs_err": worst_abs,
+             "wave_dead_tiles": [dead, tiles],
+             "wave": times,
+             "scene": {"ms": one_ms, **one_busy}}
+    return entry, spec, scenes, runs[True][1]
 
 
 def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
@@ -1216,6 +1262,7 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
             check(eng.n_compilations == 1 and len(eng.graphs) == 1
                   and eng.graphs.replays == n_frames,
                   "stream waves did not replay one bucket graph")
+            check_no_breakers(eng)
             logits = np.stack([[r.logits for r in rs] for rs in reqs])
             check(logits.shape == (n_streams, n_frames, CAPACITY,
                                    cfg.n_classes)
@@ -1228,7 +1275,7 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
     engines = [r[0] for r in runs.values()]
     expected = sspnna_convs(ctx.plan_cache.adopt(
         runs[True][1][0][0].plan_key, None, device=False), cfg)
-    per_replay = engines[0].graphs.launches(cfg.capacity)
+    per_replay = engines[0].graphs.launches(only_graph(engines[0]))
     captured = sum(e.graphs.captured["sspnna_fused"] for e in engines)
     replayed = sum(e.graphs.replayed["sspnna_fused"] for e in engines)
     launched = fused.launches - captured + replayed
@@ -1363,6 +1410,304 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
             "wave_device_ms": wave_dev,
             "wave_bound_ms": bound,
             "wave_max_abs_err": worst_abs}
+
+
+def scn_autotune_path(dev: torch.device, phase: Phases, model, cfg, seed0,
+                      spec, scenes, served) -> dict:
+    """Phases "SCN autotune: measured" and "SCN autotune: reprofile".
+
+    Measured: each level's submanifold conv of seed 0's adaptive plan runs
+    through every registered backend (``measure_backends``, CUDA events,
+    median of AUTOTUNE_K); the times fill a ``CostTable``, seed 0's plan is
+    built again with ``autotune=table``, and the tuned forward is held
+    against ``reference`` and timed beside the analytical plan's. The
+    table's save/load round trip must load, and refuse another card's
+    fingerprint. Reprofile: a cold table records seed 0's signatures as
+    misses, a ``SceneEngine`` on the pinned spec serves seeds 0-2 with
+    ``autotune_reprofile_ms`` set, and its idle hook profiles the misses on
+    synthetic workloads; the synthetic winners are printed beside the real
+    plan's. Returns the numbers for the kernel's JSON entry."""
+    from repro_torch import engine
+    from repro_torch.engine import autotune
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.sspnna import sspnna
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    fused = sspnna.sspnna_fused
+    board = engine.default_registry().breakers
+    phase("SCN autotune: measured")
+    # the measured path's counts: set to 0 here, read at the phase's end
+    fused.launches = sspnna.sspnna_tiles.launches = 0
+    flash_attention.launches = grouped_gemm.launches = 0
+    host, plan = seed0["host"], seed0["plan"]
+    table = autotune.CostTable()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    levels, real_winner = [], {}
+    with torch.inference_mode():
+        for li, (lvl, params) in enumerate(zip(plan.levels, model.levels)):
+            n, c = host.stats[li]["n_active"], cfg.widths[li]
+            sig = autotune.signature(
+                n, n, c, c, density=n / float(max(cfg.resolution >> li, 1)) ** 3)
+            feats = torch.randn(lvl.mask.shape[0], c, generator=gen,
+                                device=dev) * lvl.mask[:, None]
+            res = autotune.measure_backends(
+                lvl.sub, feats, params.enc[0].conv.params, k=AUTOTUNE_K)
+            d = lvl.sub.dispatch
+            for name, m in res.items():
+                table.record(dataclasses.replace(sig, backend=name),
+                             m.median_us, spread_us=m.spread_us, k=m.k,
+                             delta_o=d.delta_o, delta_i=d.delta_i)
+            win = min(res, key=lambda b: res[b].median_us)
+            real_winner[sig.encode()] = win
+            print(f"level {li} sig {sig.encode()} (analytical {d.backend}, "
+                  f"dO={d.delta_o} dI={d.delta_i} T={d.n_tiles}): " + "; ".join(
+                      f"{b} median {m.median_us:.1f} us spread "
+                      f"{m.spread_us:.1f} us" for b, m in sorted(res.items()))
+                  + f"; winner {win}")
+            check(set(res) == {"reference", "sspnna"} or d.backend != "sspnna",
+                  f"level {li}: a backend was not measured")
+            levels.append({"level": li, "sig": sig.encode(),
+                           "analytical": d.backend, "winner": win,
+                           **{f"{b}_us": m.median_us
+                              for b, m in res.items()},
+                           **{f"{b}_spread_us": m.spread_us
+                              for b, m in res.items()}})
+        t0 = time.perf_counter()
+        tuned_host = engine.build_scene_plan_host(scenes[0], cfg,
+                                                  autotune=table)
+        tuned_s = time.perf_counter() - t0
+        check(table.hits == len(plan.levels) and table.miss_count == 0,
+              "the tuned build did not hit the table at every level")
+        for li, (a, b) in enumerate(zip(host.stats, tuned_host.stats)):
+            print(f"level {li}: analytical {a['dispatch'].backend}, tuned "
+                  f"{b['dispatch'].backend}")
+            levels[li]["tuned"] = b["dispatch"].backend
+        tuned = engine.upload_scene_plan(tuned_host, dev)
+        feats0 = seed0["feats"]
+        logits = engine.apply_unet(model, feats0, tuned, device=dev)
+        ref = engine.apply_unet(model, feats0, tuned, backend="reference",
+                                device=dev)
+        check(logits.shape == (CAPACITY, cfg.n_classes)
+              and bool(torch.isfinite(logits).all()),
+              "tuned logits not finite or of the wrong shape")
+        _, tuned_err = max_err(logits, ref)
+        check(tuned_err <= LOGITS_TOL, "tuned and reference logits disagree")
+        fwd = {name: host_ms(lambda p=p: engine.apply_unet(
+            model, feats0, p, device=dev), 5)
+            for name, p in (("analytical", plan), ("tuned", tuned))}
+    print(f"tuned plan of seed {SEEDS[0]} built in {tuned_s:.1f} s; logits "
+          f"vs reference rel {tuned_err:.3g} (tol {LOGITS_TOL}); forward "
+          f"analytical {fwd['analytical']:.3f} ms, tuned {fwd['tuned']:.3f} "
+          f"ms (median of 5, host clock after synchronize)")
+    path = ROOT / "build" / "chip_smoke_autotune.json"
+    table.save(str(path))
+    back = autotune.CostTable.load(str(path))
+    other = autotune.CostTable.load(str(path), fingerprint="another card")
+    print(f"cost table {table.fingerprint}: {len(table)} entries, "
+          f"generation {table.generation}; reloaded {back.load_status} "
+          f"({len(back)} entries), under another fingerprint "
+          f"{other.load_status}")
+    check(back.load_status == "ok" and len(back) == len(table)
+          and other.load_status == "fingerprint-mismatch" and len(other) == 0,
+          "the cost table's save/load round trip failed")
+    measured_launches = fused.launches
+    check(sspnna.sspnna_tiles.launches == flash_attention.launches
+          == grouped_gemm.launches == 0 and board.states() == {},
+          "the measured phase launched another kernel or tripped a breaker")
+
+    phase("SCN autotune: reprofile")
+    fused.launches = sspnna.sspnna_tiles.launches = 0
+    flash_attention.launches = grouped_gemm.launches = 0
+    cold = autotune.CostTable()
+    engine.build_scene_plan_host(scenes[0], cfg, autotune=cold)
+    missed = [gk for gk, _ in cold.hottest_misses()]
+    ctx = engine.ExecutionContext(device=dev, autotune=cold,
+                                  autotune_reprofile_ms=REPROFILE_MS)
+    eng = SceneEngine(cfg, model, len(scenes), spec=spec, ctx=ctx)
+    hook, idle_s = eng.scheduler.on_idle, []
+
+    def timed(scheduler):
+        t0 = time.perf_counter()
+        hook(scheduler)
+        idle_s.append(time.perf_counter() - t0)
+
+    eng.scheduler.on_idle = timed
+    handles = eng.submit([SceneRequest(seed, t)
+                          for seed, t in zip(SEEDS, scenes)])
+    eng.serve()
+    logits = np.stack([h.result().logits for h in handles])
+    eng.close()
+    check_no_breakers(eng)
+    per_replay = eng.graphs.launches(only_graph(eng))["sspnna_fused"]
+    captured = eng.graphs.captured["sspnna_fused"]
+    replayed = eng.graphs.replayed["sspnna_fused"]
+    profiled = []
+    for gk in missed:
+        got = {e.sig.backend: e for e in cold.entries() if e.sig.group() == gk}
+        win = min(got, key=lambda b: got[b].median_us) if got else None
+        profiled.append({"sig": gk.encode(), "synthetic_winner": win,
+                         "real_winner": real_winner.get(gk.encode()),
+                         **{f"{b}_us": e.median_us for b, e in got.items()}})
+        print(f"reprofiled {gk.encode()}: " + "; ".join(
+            f"{b} {e.median_us:.1f} us" for b, e in sorted(got.items()))
+              + f"; synthetic winner {win}, real plan's winner "
+              f"{real_winner.get(gk.encode())}")
+    n_sspnna = sum("sspnna_us" in p for p in profiled)
+    print(f"reprofile: {len(missed)} missed signatures, {len(cold)} entries "
+          f"after {eng.scheduler.idle_ticks} idle tick(s) of "
+          f"{sum(idle_s):.2f} s (budget {REPROFILE_MS:.0f} ms a tick); "
+          f"generation {cold.generation}, plan-cache invalidations "
+          f"{ctx.plan_cache.invalidations}; sspnna_fused counter "
+          f"{fused.launches}: {captured} recorded at capture, {replayed} run "
+          f"by the replay, {fused.launches - captured - per_replay} by the "
+          f"profiler ({n_sspnna} signatures x 3 calls)")
+    check(len(missed) == len(plan.levels) and cold.miss_count == 0
+          and n_sspnna > 0 and eng.scheduler.idle_ticks == 1,
+          "the idle hook did not profile every missed signature")
+    # each first measurement of a miss flips (plans were built on the
+    # analytical fallback), and so does a second backend that beats it
+    check(cold.generation == ctx.plan_cache.invalidations >= len(missed),
+          "a profiled miss did not rotate the plan cache")
+    check(fused.launches - captured - per_replay == 3 * n_sspnna
+          and replayed == per_replay,
+          "the profiler's launches do not add up")
+    check(sspnna.sspnna_tiles.launches == flash_attention.launches
+          == grouped_gemm.launches == 0, "the reprofile phase launched "
+          "another kernel")
+    _, wave_err = max_err(torch.from_numpy(logits), torch.from_numpy(served))
+    print(f"reprofile engine's wave vs the serving phase's: rel "
+          f"{wave_err:.3g} (tol {WAVE_TOL})")
+    check(wave_err <= WAVE_TOL, "the reprofile engine's wave disagrees")
+    return {"measured": {"launches": measured_launches, "levels": levels,
+                         "forward_ms": fwd, "tuned_max_rel_err": tuned_err,
+                         "k": AUTOTUNE_K},
+            "reprofile": {"launches": fused.launches - captured + replayed,
+                          "profiled": profiled, "idle_s": sum(idle_s),
+                          "generation": cold.generation,
+                          "invalidations": ctx.plan_cache.invalidations}}
+
+
+def scn_breaker_path(dev: torch.device, phase: Phases, model, cfg, spec,
+                     scenes) -> dict:
+    """Phase "SCN breakers": a ``SceneEngine`` on the pinned spec, batch 2,
+    seeds 0-1, its board at 3 failures with a fake clock. A fault-free
+    wave captures the ``sspnna`` graph; then three injected dispatch faults
+    attributed to ``sspnna`` trip the breaker, and the retried requests'
+    plans, rerouted to ``reference``, run on a second graph without
+    ``sspnna_fused``, their logits held against a reference engine's. Past
+    the cooldown seed 2 probes and closes the breaker, and seeds 0-1 replay
+    the ``sspnna`` graph again, held against the fault-free wave. Times
+    the rerouted wave against the ``sspnna`` graph's. Returns the numbers
+    for the kernel's JSON entry."""
+    from repro_torch import engine
+    from repro_torch.engine.backends import OPEN, BreakerBoard
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.sspnna import sspnna
+    from repro_torch.serving.api import AdmissionPolicy
+    from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultSpec
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    fused = sspnna.sspnna_fused
+    phase("SCN breakers")
+    fused.launches = sspnna.sspnna_tiles.launches = 0
+    flash_attention.launches = grouped_gemm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    now = [0.0]
+    reg = engine.default_registry().view()
+    reg.breakers = board = BreakerBoard(reg, failure_threshold=3,
+                                        cooldown_s=60.0, clock=lambda: now[0])
+    ctx = engine.ExecutionContext(device=dev, registry=reg)
+    eng = SceneEngine(cfg, model, 2, spec=spec, ctx=ctx,
+                      policy=AdmissionPolicy(max_retries=4,
+                                             retry_backoff_ms=1.0))
+    pair, cap = scenes[:2], cfg.capacity
+
+    def serve(e, batch, rid0):
+        hs = e.submit([SceneRequest(rid0 + i, t) for i, t in enumerate(batch)])
+        e.serve()
+        return np.stack([h.result().logits for h in hs])
+
+    def plans_now():
+        return [ctx.plan_cache.get_or_build(
+            t, cfg, device=dev, topology=ctx.topology_key(), **eng._plan_kw)
+            for t in pair]
+
+    clean = serve(eng, pair, 0)
+    check_no_breakers(eng)
+    sspnna_plans = plans_now()
+    sspnna_key = eng.graph_key(cap, sspnna_plans[0])
+    eng.scheduler.faults = FaultInjector(FaultPlan(seed=0, specs=(
+        FaultSpec("dispatch", rate=1.0, backend="sspnna", max_fires=3),)))
+    rerouted = serve(eng, pair, 10)
+    states = board.states()
+    print(f"faulted serve: {eng.scheduler.wave_errors} wave errors, "
+          f"{eng.scheduler.retries_charged} retries, breakers {states}, "
+          f"generation {board.generation}, graphs {len(eng.graphs)}")
+    check(eng.scheduler.wave_errors == 3 and states["sspnna"]["state"] == OPEN
+          and states["sspnna"]["trips"] == 1
+          and eng.health()["breakers"] == states,
+          "three dispatch faults did not trip the sspnna breaker once")
+    ref_plans = plans_now()
+    check(all(lvl.sub.dispatch.backend == engine.REFERENCE
+              for p in ref_plans for lvl in p.levels),
+          "a plan built after the trip still dispatches to sspnna")
+    ref_key = eng.graph_key(cap, ref_plans[0])
+    check(eng.graphs.keys() == [sspnna_key, ref_key]
+          and eng.n_compilations == 2
+          and eng.graphs.launches(ref_key)["sspnna_fused"] == 0,
+          "the rerouted waves did not run on a second graph without "
+          "sspnna_fused")
+    ref_eng = SceneEngine(cfg, model, 2, ctx=engine.ExecutionContext(
+        device=dev))
+    want = serve(ref_eng, pair, 0)
+    ref_eng.close()
+    check_no_breakers(ref_eng)
+    _, reroute_err = max_err(torch.from_numpy(rerouted),
+                             torch.from_numpy(want))
+    print(f"rerouted logits vs a reference engine's: rel {reroute_err:.3g} "
+          f"(tol {LOGITS_TOL})")
+    check(reroute_err <= LOGITS_TOL, "rerouted and reference logits disagree")
+    feats = [torch.from_numpy(t.feats).to(dev) for t in pair]
+    with torch.inference_mode():
+        wave_ms = {name: host_ms(lambda p=p: eng.run_wave(feats, p, cap), 5)
+                   for name, p in (("sspnna", sspnna_plans),
+                                   ("rerouted", ref_plans))}
+    print(f"a wave of 2, graph replay: sspnna {wave_ms['sspnna']:.3f} ms "
+          f"({wave_ms['sspnna'] / 2:.3f} ms a scene), rerouted to reference "
+          f"{wave_ms['rerouted']:.3f} ms ({wave_ms['rerouted'] / 2:.3f} ms a "
+          f"scene; host clock after synchronize, median of 5)")
+    eng.scheduler.faults = None
+    now[0] += 61.0
+    gen, replays = board.generation, eng.graphs.replays
+    serve(eng, scenes[2:3], 20)   # a new scene's build probes sspnna
+    check(board.states()["sspnna"]["state"] == "closed"
+          and board.generation == gen + 1
+          and eng.graphs.replays == replays + 1 and len(eng.graphs) == 2,
+          "the HALF_OPEN probe did not close the breaker on the sspnna graph")
+    again = serve(eng, pair, 30)
+    eng.close()
+    _, again_err = max_err(torch.from_numpy(again), torch.from_numpy(clean))
+    print(f"after the probe closed the breaker: seeds 0-1 vs the fault-free "
+          f"wave rel {again_err:.3g} (tol {WAVE_TOL}); graphs "
+          f"{len(eng.graphs)}, replays {eng.graphs.replays}")
+    check(again_err <= WAVE_TOL, "the re-closed sspnna wave disagrees")
+    captured = eng.graphs.captured["sspnna_fused"]
+    replayed = eng.graphs.replayed["sspnna_fused"]
+    launched = fused.launches - captured + replayed
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"SCN breakers path: sspnna_fused counter {fused.launches} "
+          f"({captured} recorded at capture), {replayed} run by replays: "
+          f"{launched} launches on the device; peak memory {peak:.2f} GiB")
+    check(replayed > 0 and sspnna.sspnna_tiles.launches
+          == flash_attention.launches == grouped_gemm.launches == 0,
+          "the breaker path ran no sspnna_fused replay or another kernel")
+    return {"launches": launched, "wave_errors": eng.scheduler.wave_errors,
+            "trips": states["sspnna"]["trips"],
+            "generation": board.generation, "graphs": len(eng.graphs),
+            "wave_ms": wave_ms, "rerouted_max_rel_err": reroute_err,
+            "reclosed_max_rel_err": again_err, "peak_gib": peak}
 
 
 def greedy_tokens(step, params, cfg, logits, cache) -> torch.Tensor:
@@ -2260,12 +2605,18 @@ def main() -> int:
     results = [fused_entry]
     with torch.inference_mode():  # the model's parameters require grad
         tiles_entry = pregathered_path(dev, phase, seed0)
-    serving = scn_serving_path(dev, phase, seed0["model"], seed0["cfg"])
+    serving, spec, scenes, served = scn_serving_path(
+        dev, phase, seed0["model"], seed0["cfg"])
     print(f"sspnna_fused on the device: a wave of {len(SEEDS)} on pinned "
           f"plans {serving['wave_device_ms']:.4f} ms against {len(SEEDS)} x "
           f"seed 0's adaptive forward {len(SEEDS) * fused_entry['device_ms']:.4f}"
           f" ms")
     fused_entry["serving"] = serving
+    fused_entry["autotune"] = scn_autotune_path(
+        dev, phase, seed0["model"], seed0["cfg"], seed0, spec, scenes, served)
+    fused_entry["breakers"] = scn_breaker_path(
+        dev, phase, seed0["model"], seed0["cfg"], spec, scenes)
+    del spec, scenes, served
     fused_entry["streaming"] = scn_stream_path(dev, phase, seed0["model"],
                                                seed0["cfg"])
     del seed0

@@ -9,6 +9,12 @@ content, and an ``ExecutionContext`` holds the device, the registry and the
 cache that serving shares. A standalone conv site gets its tiled plan from
 ``conv_plan_for_layer``; a LiDAR stream patches each frame's plan from the
 previous one's through ``StreamPlanState``.
+
+Measured dispatch (``engine.autotune``): a ``CostTable`` of per-backend
+times by shape signature, which plan builds consult before SPADE's
+analytical model (``autotune=``) and a serving engine re-profiles in its
+idle gaps. Each registry carries circuit breakers (``registry.breakers``)
+that reroute a failing backend's new plans along its fallback chain.
 """
 from repro_torch.engine.api import (
     apply_unet,
@@ -18,6 +24,19 @@ from repro_torch.engine.api import (
     resolve_backend,
     sparse_conv,
 )
+from repro_torch.engine.autotune import (
+    CostTable,
+    Measurement,
+    ShapeSig,
+    default_cache_path,
+    device_fingerprint,
+    measure,
+    measure_backends,
+    profile_group,
+    reprofile,
+    seed_cost_table,
+    signature,
+)
 from repro_torch.engine.backends import (
     AUTO,
     DEFAULT_REGISTRY,
@@ -25,7 +44,8 @@ from repro_torch.engine.backends import (
     BackendRegistry,
     ReferenceBackend,
     SSpNNABackend,
-    make_registry,
+    default_registry,
+    register_backend,
 )
 from repro_torch.engine.context import (
     ExecutionContext,
@@ -62,15 +82,18 @@ from repro_torch.engine.plan import (
 
 __all__ = [
     "AUTO", "DEFAULT_REGISTRY", "REFERENCE", "SSPNNA", "Backend",
-    "BackendRegistry", "ConvPlan", "Dispatch", "ExecutionContext",
-    "LevelPlan", "PlanCache", "PlanSpec", "ReferenceBackend",
-    "SSpNNABackend", "ScenePlan", "SignatureFamily", "StreamPlanState",
-    "TileArrays",
+    "BackendRegistry", "ConvPlan", "CostTable", "Dispatch",
+    "ExecutionContext", "LevelPlan", "Measurement", "PlanCache", "PlanSpec",
+    "ReferenceBackend", "SSpNNABackend", "ScenePlan", "ShapeSig",
+    "SignatureFamily", "StreamPlanState", "TileArrays",
     "apply_unet", "available_backends", "build_plan_spec",
     "build_scene_plan", "build_scene_plan_host", "build_signature_family",
     "choose_buckets", "conv_block", "conv_plan_for_layer",
-    "current_context", "default_context", "dispatch_from_dataflow",
-    "level_geometry", "make_registry", "plan_signature", "reference_plan",
-    "resolve_backend", "scene_key", "set_default_context", "sparse_conv",
-    "stack_plans", "upload_scene_plan", "use_context",
+    "current_context", "default_cache_path", "default_context",
+    "default_registry", "device_fingerprint", "dispatch_from_dataflow",
+    "level_geometry", "measure", "measure_backends",
+    "plan_signature", "profile_group", "reference_plan", "register_backend",
+    "reprofile", "resolve_backend", "scene_key", "seed_cost_table",
+    "set_default_context", "signature", "sparse_conv", "stack_plans",
+    "upload_scene_plan", "use_context",
 ]

@@ -1,19 +1,27 @@
-"""ExecutionContext: the object that owns the device, the backends and the
-plan cache (port of ``repro.engine.context``).
+"""ExecutionContext: the object that owns the device, the backends, the
+plan cache and the measured-dispatch table (port of
+``repro.engine.context``).
 
 ``ExecutionContext`` bundles what the serving engines share:
 
 * ``device`` — where plans are uploaded and forwards run: the card unless
   the caller asks for the CPU;
-* ``registry`` — the :class:`~repro_torch.engine.backends.BackendRegistry`
-  a forward dispatches through (a fresh ``make_registry()`` by default);
+* ``registry`` — a scoped :class:`~repro_torch.engine.backends.
+  BackendRegistry` view chained to the process default
+  (``default_registry().view()``), so ``register_backend`` reaches every
+  context while a context's overlays and circuit-breaker trips stay its
+  own;
 * ``plan_cache`` — the content-keyed :class:`~repro_torch.engine.plan.
   PlanCache`; keys mix in :meth:`topology_key`;
+* ``autotune`` / ``autotune_reprofile_ms`` — an optional measured cost
+  table (``engine.autotune.CostTable``) that plan builds consult, and the
+  idle-gap re-profiling budget serving engines give it;
 * scheduler defaults (``sync`` / ``depth`` / ``planner_threads`` /
   ``admission``) that ``serving.scene_engine.SceneEngine`` picks up.
 
-A device mesh (``mesh=``) comes with the sharded-scene slice and measured
-dispatch (``autotune=``) with the self-tuning slice; both raise until then.
+A measured-winner flip or a breaker state change invalidates
+``plan_cache`` (hooks wired in ``__post_init__``). A device mesh
+(``mesh=``) comes with the sharded-scene slice and raises until then.
 ``current_context()`` resolves the innermost ``use_context(...)`` block,
 else the module default.
 """
@@ -25,7 +33,12 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.engine.backends import BackendRegistry, make_registry
+from repro_torch.engine.backends import (
+    AUTO,
+    Backend,
+    BackendRegistry,
+    default_registry,
+)
 from repro_torch.engine.plan import PlanCache
 
 
@@ -37,8 +50,9 @@ class ExecutionContext:
     mesh: object | None = None
     #: mesh axis the scene capacity axis is sharded over
     shard_axis: str = "shard"
-    #: backend registry forwards under this context dispatch through
-    registry: BackendRegistry = field(default_factory=make_registry)
+    #: scoped backend registry (chains to the process default)
+    registry: BackendRegistry = field(
+        default_factory=lambda: default_registry().view())
     #: content-keyed scene-plan cache (topology mixed into every key)
     plan_cache: PlanCache = field(default_factory=PlanCache)
     #: serving defaults picked up by engines built from this context
@@ -48,8 +62,13 @@ class ExecutionContext:
     #: default ``serving.AdmissionPolicy`` of engines built from this
     #: context; None = FIFO admission
     admission: object | None = None
-    #: measured-dispatch cost table: slice 7 brings it
+    #: measured-dispatch cost table (``engine.autotune.CostTable``). When
+    #: set, plan builds under this context consult measured winners before
+    #: the analytical model, and a winner flip invalidates ``plan_cache``
     autotune: object | None = None
+    #: idle-gap re-profiling budget per scheduler tick, in ms; 0 (the
+    #: default) installs no idle hook
+    autotune_reprofile_ms: float = 0.0
     #: where plans are uploaded and forwards run
     device: str | torch.device = "cuda"
 
@@ -58,15 +77,24 @@ class ExecutionContext:
             raise NotImplementedError(
                 "mesh= comes with ROADMAP.md, queue 1, slice 9 (sharded "
                 "scenes)")
+        # plans cached under a measured decision or a breaker routing must
+        # not outlive it: keys rotate (the table's and the board's
+        # generations are repr'd into them) and the cache is dropped
         if self.autotune is not None:
-            raise NotImplementedError(
-                "autotune= comes with ROADMAP.md, queue 1, slice 7 "
-                "(self-tuning and hardening)")
+            self.autotune.add_flip_hook(self.plan_cache.invalidate)
+        self.registry.breakers.add_hook(self.plan_cache.invalidate)
 
     def topology_key(self) -> str:
         """The execution topology mixed into plan-cache keys: ``"host"``
         (one device, no mesh)."""
         return "host"
+
+    def resolve_backend(self, plan, backend: str = AUTO) -> str:
+        """The backend name a call under this context will actually run."""
+        return self.registry.resolve(plan, backend)
+
+    def backend(self, name: str) -> Backend:
+        return self.registry.get(name)
 
 
 _DEFAULT: ExecutionContext | None = None

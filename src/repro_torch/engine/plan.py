@@ -64,7 +64,10 @@ _K_SUB = 27  # submanifold 3^3 kernel volume
 # its layout).
 _PLAN_VERSION = 4
 
-_SLICE_7 = "ROADMAP.md, queue 1, slice 7 (self-tuning and hardening)"
+_NO_BLOCK_N = (
+    "tune_block_n= has no counterpart in the port: the CUDA SSpNNA kernels "
+    "have no N-block to tune (the launch geometry picks its own N split; "
+    "ROADMAP.md, queue 1, slice 7)")
 
 
 def _fault_injector():
@@ -479,16 +482,22 @@ def build_plan_spec(
     sweep once at ``cfg.capacity`` rows, and pin the winning dataflow. Tile
     budgets take the analytic bound capped at ``tile_margin`` times the
     worst observed count, so plans keep their shapes without drowning in
-    padding tiles. ``tune_block_n`` and ``autotune`` come with slice 7 and
-    raise.
+    padding tiles.
+
+    ``autotune`` is an optional measured :class:`~repro_torch.engine.
+    autotune.CostTable`: each level's analytical decision is overridden by
+    the cheapest *measured* backend at the level's shape signature when the
+    table has one, and left untouched (miss recorded) when it doesn't — a
+    cold table reproduces the analytical spec exactly. ``tune_block_n``
+    raises: the CUDA kernels have no N-block.
     """
-    if tune_block_n is not None or autotune is not None:
-        raise NotImplementedError(
-            f"tune_block_n= and autotune= come with {_SLICE_7}")
+    if tune_block_n is not None:
+        raise NotImplementedError(_NO_BLOCK_N)
     offs3 = kernel_offsets(3)
     n_levels = len(cfg.widths)
     per_level: list[list[spade.SparsityAttributes]] = [[] for _ in range(n_levels)]
     observed_tiles = [0] * n_levels
+    level_density = [0.0] * n_levels
     geo_attrs = []
     for t in scenes:
         rows = []
@@ -497,6 +506,8 @@ def build_plan_spec(
             ordering = _order_rows(coir, coords, mask, order, soar_chunk)
             per_level[li].append(spade.extract_attributes(
                 np.asarray(coir.indices), np.asarray(mask), ordering))
+            level_density[li] += (float(np.asarray(mask).sum())
+                                  / float(max(res, 1)) ** 3 / len(scenes))
             rows.append((coir, ordering))
         geo_attrs.append(rows)
 
@@ -506,6 +517,11 @@ def build_plan_spec(
         layer = _layer_spec(f"level{li}", cfg.capacity, cfg.widths[li])
         df = spade.explore(layer, {"CIRF": msa, "CORF": msa}, mem_budget)
         d = dispatch_from_dataflow(df, msa, cfg.capacity)
+        if autotune is not None:
+            d = autotune.adjust_dispatch(
+                d, n_in=cfg.capacity, n_out=cfg.capacity,
+                c_in=cfg.widths[li], c_out=cfg.widths[li],
+                density=level_density[li], kernel_volume=_K_SUB)
         if d.backend == SSPNNA:
             # worst observed tile count across the representative scenes
             for rows in geo_attrs:
@@ -554,10 +570,16 @@ def _assemble_level(
     mem_budget: int,
     order: str,
     soar_chunk: int,
+    autotune=None,
+    breakers=None,
 ) -> tuple[ConvPlan, dict]:
     """Dispatch, ordering and tile assembly for one level's submanifold
     conv: the spec's pinned decision, or SPADE on this scene's own
-    attributes."""
+    attributes (overridden by ``autotune``'s measured winner where it has
+    one). ``breakers`` (a ``BreakerBoard``) reroutes a tripped backend
+    along its fallback chain. Deterministic in ``(sub_coir, coords,
+    mask)`` for a fixed table and board state, which the streaming planner
+    relies on."""
     n_active = int(np.asarray(mask).sum())
     info: dict = {"level": li, "n_active": n_active}
     dispatch = REFERENCE_DISPATCH
@@ -575,6 +597,24 @@ def _assemble_level(
             dispatch = dispatch_from_dataflow(df, attrs, n_active)
             info["arf"] = float(attrs.arf_avg[0])
             info["da_elems"] = df.da_elems
+            if autotune is not None:
+                # measured-winner consult; a miss (recorded) keeps the
+                # analytical decision unchanged
+                res3 = float(max(cfg.resolution >> li, 1)) ** 3
+                dispatch = autotune.adjust_dispatch(
+                    dispatch, n_in=n_active, n_out=n_active,
+                    c_in=cfg.widths[li], c_out=cfg.widths[li],
+                    density=n_active / res3, kernel_volume=_K_SUB)
+                info["autotuned"] = dispatch.backend
+        if breakers is not None and dispatch.backend != REFERENCE:
+            # circuit-breaker consult at *build* time: the rerouted
+            # dispatch lands in the plan's signature, so the serving
+            # engine runs it on another graph
+            routed = breakers.route(dispatch.backend)
+            if routed != dispatch.backend:
+                info["breaker_rerouted"] = (dispatch.backend, routed)
+                dispatch = (REFERENCE_DISPATCH if routed == REFERENCE
+                            else replace(dispatch, backend=routed))
         if dispatch.backend == SSPNNA:
             if spec is not None:
                 ordering = _order_rows(sub_coir, coords, mask, order,
@@ -592,7 +632,7 @@ def _assemble_level(
 
 
 def _build_scene_plan(t, cfg, *, spec, plan_tiles, mem_budget, order,
-                      soar_chunk) -> ScenePlan:
+                      soar_chunk, autotune=None, breakers=None) -> ScenePlan:
     if spec is not None and len(spec.levels) != len(cfg.widths):
         raise ValueError(
             f"spec has {len(spec.levels)} levels but cfg has "
@@ -616,7 +656,8 @@ def _build_scene_plan(t, cfg, *, spec, plan_tiles, mem_budget, order,
             up = ConvPlan(up_coir)
         sub, info = _assemble_level(
             sub_coir, coords, mask, li, cfg, spec=spec, plan_tiles=plan_tiles,
-            mem_budget=mem_budget, order=order, soar_chunk=soar_chunk)
+            mem_budget=mem_budget, order=order, soar_chunk=soar_chunk,
+            autotune=autotune, breakers=breakers)
         stats.append(info)
         levels.append(LevelPlan(coords, mask, sub, down, up))
     return ScenePlan(tuple(levels), stats)
@@ -743,19 +784,20 @@ def build_scene_plan_host(
     order: str = "soar",
     soar_chunk: int = 512,
     autotune=None,
+    breakers=None,
 ) -> ScenePlan:
     """AdMAC metadata + SOAR ordering + SPADE selection (or the ``spec``'s
     pinned decisions) + tile tables for one scene, all leaves numpy. Pair
     with ``upload_scene_plan``; safe to call from planner threads.
 
     ``plan_tiles=False`` skips ordering and attribute extraction and gives
-    an all-reference plan. ``autotune`` (a measured cost table) comes with
-    slice 7 and raises."""
-    if autotune is not None:
-        raise NotImplementedError(f"autotune= comes with {_SLICE_7}")
+    an all-reference plan. ``autotune`` (a measured ``CostTable``) overrides
+    adaptive decisions with measured winners; ``breakers`` (a
+    ``BreakerBoard``) reroutes tripped backends."""
     plan = _build_scene_plan(t, cfg, spec=spec, plan_tiles=plan_tiles,
                              mem_budget=mem_budget, order=order,
-                             soar_chunk=soar_chunk)
+                             soar_chunk=soar_chunk, autotune=autotune,
+                             breakers=breakers)
     return _map_leaves(plan, np.asarray)
 
 
@@ -769,13 +811,15 @@ def build_scene_plan(
     order: str = "soar",
     soar_chunk: int = 512,
     autotune=None,
+    breakers=None,
     device: str | torch.device = "cuda",
 ) -> ScenePlan:
     """One AdMAC + SOAR + SPADE pass -> a ScenePlan on ``device``:
     ``build_scene_plan_host`` then ``upload_scene_plan``."""
     return upload_scene_plan(build_scene_plan_host(
         t, cfg, spec=spec, plan_tiles=plan_tiles, mem_budget=mem_budget,
-        order=order, soar_chunk=soar_chunk, autotune=autotune), device)
+        order=order, soar_chunk=soar_chunk, autotune=autotune,
+        breakers=breakers), device)
 
 
 def upload_scene_plan(plan: ScenePlan, device: str | torch.device = "cuda"

@@ -62,6 +62,10 @@ class Graphs:
     def __len__(self) -> int:
         return len(self._graphs)
 
+    def keys(self) -> list:
+        """The keys of the captured graphs, in capture order."""
+        return list(self._graphs)
+
     def launches(self, key) -> Counter:
         """The kernel launches one replay of ``key``'s graph runs."""
         return Counter(self._graphs[key][2])

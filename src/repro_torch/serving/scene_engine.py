@@ -1,6 +1,7 @@
 """Batched 3D-scene serving: fixed-capacity slots, cached plans, one CUDA
-graph per capacity bucket (port of ``repro.serving.scene_engine``; the
-sharded mode comes with a later slice).
+graph per (capacity bucket, plan signature) (port of
+``repro.serving.scene_engine``; the sharded mode comes with a later
+slice).
 
 The 3D face of the shared ``serving.scheduler.WaveScheduler``: the host
 packs up to ``batch`` scene requests per wave, builds (or cache-hits) each
@@ -36,13 +37,25 @@ the mean ``stream_overlap`` and the summed ``stream_plan_ms``.
 The wave forward is the counterpart of the JAX package's ``vmap`` over
 stacked plans: the B plans are concatenated (``engine.stack_plans``) and
 ``engine.apply_unet`` runs the B x capacity rows in one pass, one kernel
-launch per conv for the whole wave. On the card each bucket's forward is a
-CUDA graph (``serving.graphs``), the counterpart of one jit signature per
-bucket: captured on the bucket's first wave, it reads per-bucket buffers
+launch per conv for the whole wave. On the card the forward of each
+(capacity, plan signature) pair is a CUDA graph (``serving.graphs``), the
+counterpart of the JAX package's one jit compile per distinct plan
+signature: captured on the pair's first wave, it reads buffers of its own
 that each later wave fills with its plans' tables and features before the
-replay. A plan whose signature differs from the wave's or the bucket's (a
-scene over a pinned tile budget) raises; it never runs eagerly instead. On
-the CPU the same forward runs eagerly.
+replay. A new signature (every scene of a wave over a pinned tile budget
+at the same level, or plans a tripped circuit breaker rerouted) captures
+a new graph; a wave whose plans disagree among themselves raises, as in
+the JAX package, and never runs eagerly instead. On the CPU the same
+forward runs eagerly.
+
+Circuit breakers and measured dispatch, as in the JAX package: the
+context registry's ``BreakerBoard`` is fed by contained wave failures
+(``on_wave_error``: the exception's ``backend``, else the non-reference
+backends of the wave's plans) and by drained waves (successes), and plan
+builds consult it, so a failing backend's new plans reroute along its
+fallback chain; ``ctx.autotune`` (a ``CostTable``) reaches the plan
+builds, and with ``ctx.autotune_reprofile_ms > 0`` the scheduler's idle
+gap re-profiles it (``engine.autotune.reprofile``).
 
 Stage split, as in the JAX package: **plan** builds the host plan
 (``PlanCache.get_or_build(device=False)``) on planner threads; **dispatch**
@@ -65,6 +78,7 @@ from repro_torch.device import host_array, require_device
 from repro_torch.engine import api as engine_api
 from repro_torch.engine.context import ExecutionContext
 from repro_torch.engine.plan import (
+    REFERENCE,
     PlanCache,
     PlanSpec,
     SignatureFamily,
@@ -208,6 +222,15 @@ class SceneEngine(ServingBase):
         self.backend, self.use_kernel = backend, use_kernel
         self.cache = ctx.plan_cache
         self._topology = ctx.topology_key()
+        #: the context registry's circuit breakers: contained dispatch and
+        #: drain failures feed them and plan builds consult them
+        self._breakers = ctx.registry.breakers
+        # the table's and the board's generations are repr'd into every
+        # cache key, so a winner flip or a breaker state change rotates
+        # keys (and their hooks clear the cache)
+        tuning = dict(breakers=self._breakers)
+        if ctx.autotune is not None:
+            tuning["autotune"] = ctx.autotune
         if family is not None:
             # per-bucket configs share the model; only the capacity differs
             self._bucket_cfgs = {
@@ -216,14 +239,14 @@ class SceneEngine(ServingBase):
             self._bucket_kw = {
                 cap: dict(spec=family.spec_for(cap),
                           plan_tiles=family.spec_for(cap) is not None,
-                          order=order, soar_chunk=soar_chunk)
+                          order=order, soar_chunk=soar_chunk, **tuning)
                 for cap in family.capacities}
         else:
             self._plan_kw = dict(spec=spec, plan_tiles=spec is not None,
-                                 order=order, soar_chunk=soar_chunk)
-        # bucket capacity -> the plan signature its forward is held to and,
-        # on the card, the buffers its graph reads
-        self._buckets: dict[int, dict] = {}
+                                 order=order, soar_chunk=soar_chunk, **tuning)
+        # (capacity, plan signature) -> on the card, the buffers its graph
+        # reads
+        self._buckets: dict[tuple, dict] = {}
         self._streams: dict[str, StreamHandle] = {}
         self.graphs = Graphs(self.device) if self.device.type == "cuda" else None
         self.scheduler = WaveScheduler(
@@ -237,16 +260,24 @@ class SceneEngine(ServingBase):
             bucket_of=((lambda r: getattr(r, "_bucket", None))
                        if family is not None else None),
             on_shed=self._on_shed,
-            faults=faults)
+            on_idle=self._make_idle_hook(ctx),
+            faults=faults,
+            on_wave_error=self._on_wave_error)
 
     # -- introspection -------------------------------------------------------
 
     @property
     def n_compilations(self) -> int:
-        """Bucket signatures pinned so far, one per bucket served: on the
-        card each is a captured CUDA graph; on the CPU the signature the
-        eager forward is held to."""
+        """Distinct (capacity, plan signature) pairs served so far, the
+        JAX package's jit-cache count: on the card each is a captured CUDA
+        graph."""
         return len(self._buckets)
+
+    @staticmethod
+    def graph_key(capacity: int, plan) -> tuple:
+        """The key of the graph a wave of ``plan``'s signature at bucket
+        ``capacity`` runs on (``graphs.launches(key)`` and the like)."""
+        return capacity, plan_signature(plan)
 
     # -- streaming -----------------------------------------------------------
 
@@ -308,6 +339,26 @@ class SceneEngine(ServingBase):
         if isinstance(req, StreamFrameRequest) and req.stream is not None:
             req.stream.state.skip_frame(req.frame_no)
 
+    def _make_idle_hook(self, ctx):
+        """Idle-gap re-profiling hook for the wave scheduler, or ``None``.
+
+        Installed only when the context carries a cost table *and* a
+        positive ``autotune_reprofile_ms`` budget. The scheduler calls it
+        after a ``run`` drains the queue, on the serving thread between
+        waves, so it never runs inside a graph capture."""
+        table = ctx.autotune
+        budget_ms = float(ctx.autotune_reprofile_ms or 0.0)
+        if table is None or budget_ms <= 0.0:
+            return None
+
+        def _idle(scheduler) -> None:
+            from repro_torch.engine.autotune import reprofile
+
+            reprofile(table, registry=ctx.registry, ctx=ctx,
+                      budget_ms=budget_ms)
+
+        return _idle
+
     # -- admission -----------------------------------------------------------
 
     def _prepare(self, req: SceneRequest) -> str | None:
@@ -355,6 +406,7 @@ class SceneEngine(ServingBase):
                 scene, req.frame_no, req.ego_shift)
             req.plan_info, req.plan_key = info, key
             req._frame_rows = frame_rows
+            req._backends = self._plan_backends(plan)
             feats = pack_stream_frame_np(frame_rows, host_array(scene.feats))
             return key, plan, feats, state
         if self.family is not None:
@@ -367,7 +419,36 @@ class SceneEngine(ServingBase):
                                  **plan_kw)
         plan = self.cache.get_or_build(scene, cfg, device=False, key=key,
                                        **plan_kw)
+        req._backends = self._plan_backends(plan)
         return key, plan, scene.feats, None
+
+    @staticmethod
+    def _plan_backends(plan) -> tuple:
+        """Non-reference backends this plan dispatches to — the circuit
+        breakers a failure of the request's wave is attributed to (when
+        the exception itself doesn't name one)."""
+        names = set()
+        for info in plan.stats or ():
+            name = getattr(info.get("dispatch"), "backend", None)
+            if name is not None and name != REFERENCE:
+                names.add(name)
+        return tuple(sorted(names))
+
+    def _on_wave_error(self, exc, reqs, stage: str) -> None:
+        """Contained-wave-failure observer (scheduler ``on_wave_error``):
+        attribute dispatch/drain failures to backend circuit breakers —
+        the exception's ``backend`` attribute when it names one (e.g. an
+        injected ``DeviceFaultError``), else every non-reference backend
+        the wave's plans dispatch to."""
+        board = self._breakers
+        if stage not in ("dispatch", "drain"):
+            return
+        name = getattr(exc, "backend", None)
+        names = ((name,) if name else
+                 sorted({b for r in reqs
+                         for b in getattr(r, "_backends", ())}))
+        for n in names:
+            board.record_failure(n)
 
     @torch.inference_mode()
     def _dispatch_stage(self, reqs: list[SceneRequest], payloads, stats):
@@ -382,13 +463,6 @@ class SceneEngine(ServingBase):
             else:
                 plans.append(state.device_plan(host))
                 r.plan_info["upload"] = dict(state.last_upload)
-        for r, p in zip(reqs, plans):
-            over = [s["level"] for s in p.stats or () if s.get("tile_overflow")]
-            if over:
-                raise RuntimeError(
-                    f"scene {r.rid}: needs more tiles than the pinned budget "
-                    f"at level {over}, so its plan signature diverged from "
-                    "the bucket's; raise tile_margin in build_plan_spec")
         if self.family is not None:
             # admission admits one bucket a wave; a mixed wave means the
             # bucket hook was bypassed
@@ -427,30 +501,28 @@ class SceneEngine(ServingBase):
                  rids=None, notes: dict | None = None) -> torch.Tensor:
         """Logits ``(batch * capacity, n_classes)`` of one wave: up to
         ``batch`` scenes' features (on the device) and uploaded plans, all
-        of bucket ``capacity``; a short wave is padded with the first
-        scene's plan and zero features. On the CPU the forward runs
-        eagerly; on the card it is a replay of the bucket's graph, captured
-        on its first wave, and ``notes["graph_launches"]`` receives the
-        kernel launches it ran. A plan whose signature differs from the
-        wave's or the bucket's raises."""
+        of bucket ``capacity`` and of one plan signature; a short wave is
+        padded with the first scene's plan and zero features. On the CPU
+        the forward runs eagerly; on the card it is a replay of the graph
+        of (``capacity``, the plans' signature), captured on that pair's
+        first wave, and ``notes["graph_launches"]`` receives the kernel
+        launches it ran. A plan whose signature differs from the wave's
+        raises."""
         rids = list(range(len(plans))) if rids is None else rids
         want = (capacity, self.model.stem.weight.shape[1])
         for rid, f in zip(rids, feats):
             if tuple(f.shape) != want:
                 raise ValueError(f"scene {rid}: features {tuple(f.shape)}, "
                                  f"the bucket takes {want}")
-        sig = plan_signature(plans[0])
+        key = self.graph_key(capacity, plans[0])
+        sig = key[1]
         for rid, p in zip(rids, plans):
             if plan_signature(p) != sig:
                 raise RuntimeError(
                     f"scene {rid}: plan signature diverged from the wave "
                     "(tile-budget overflow?); raise tile_margin in "
                     "build_plan_spec")
-        bucket = self._buckets.setdefault(capacity, {"sig": sig})
-        if bucket["sig"] != sig:
-            raise RuntimeError(
-                f"plan signature diverged from bucket {capacity}'s pinned "
-                "signature (another spec or capacity?)")
+        bucket = self._buckets.setdefault(key, {})
         plans, feats = list(plans), list(feats)
         while len(plans) < self.batch:  # pad the wave to fixed batch
             plans.append(plans[0])
@@ -459,18 +531,17 @@ class SceneEngine(ServingBase):
         notes["graph_launches"] = {}
         if self.graphs is None:
             return self._apply(torch.cat(feats), stack_plans(plans))
-        if capacity not in self.graphs:
+        if key not in self.graphs:
             bucket["plan"] = stack_plans(plans)
             bucket["feats"] = torch.cat(feats)
             self._apply(bucket["feats"], bucket["plan"])  # warm-up
             self.graphs.capture(
-                capacity,
-                lambda: self._apply(bucket["feats"], bucket["plan"]))
+                key, lambda: self._apply(bucket["feats"], bucket["plan"]))
         else:
             stack_plans(plans, out=bucket["plan"])
             torch.cat(feats, out=bucket["feats"])
-        logits = self.graphs.replay(capacity)
-        notes["graph_launches"] = dict(self.graphs.launches(capacity))
+        logits = self.graphs.replay(key)
+        notes["graph_launches"] = dict(self.graphs.launches(key))
         # a copy: the next wave's replay overwrites the graph's output
         return logits.clone()
 
@@ -499,7 +570,10 @@ class SceneEngine(ServingBase):
                 r.logits = logits[i]
             r.pred = r.logits.argmax(-1)
             r.done = True
+        # a drained wave is a success for every backend it exercised: closes
+        # HALF_OPEN probes and resets consecutive-failure counts
+        for n in sorted({b for r in reqs for b in r._backends}):
+            self._breakers.record_success(n)
 
     def _health_extra(self) -> dict:
-        # circuit breakers come with slice 7
-        return {"breakers": {}}
+        return {"breakers": self._breakers.states()}

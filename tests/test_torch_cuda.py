@@ -751,7 +751,9 @@ def test_scene_engine_graph_replay_matches_eager_wave(cuda_device):
             engine.stack_plans(plans), device=cuda_device)
     eager = sspnna_fused.launches - launches
     assert eager > 0
-    assert eng.graphs.launches(cfg.capacity)["sspnna_fused"] == eager
+    key = eng.graph_key(cfg.capacity, plans[0])
+    assert eng.graphs.keys() == [key]
+    assert eng.graphs.launches(key)["sspnna_fused"] == eager
     assert eng.wave_stats[0].notes["graph_launches"] == {
         "sspnna_fused": eager}
     np.testing.assert_allclose(first.reshape(-1, cfg.n_classes),
@@ -801,7 +803,8 @@ def test_scene_engine_streams_through_the_bucket_graph(cuda_device):
 
     eng, by_sync = serve(True)
     assert len(eng.graphs) == 1 and eng.graphs.replays == 3
-    per_replay = eng.graphs.launches(cfg.capacity)["sspnna_fused"]
+    (key,) = eng.graphs.keys()
+    per_replay = eng.graphs.launches(key)["sspnna_fused"]
     assert per_replay > 0
     assert eng.graphs.replayed["sspnna_fused"] == 3 * per_replay
     for rs in by_sync:
@@ -834,6 +837,142 @@ def test_scene_engine_streams_through_the_bucket_graph(cuda_device):
     for a_s, b_s in zip(by_sync, by_async):
         for a, b in zip(a_s, b_s):
             np.testing.assert_array_equal(a.logits, b.logits)
+
+
+@pytest.mark.cuda
+def test_measure_on_the_card_reads_cuda_events(cuda_device):
+    """``engine.measure`` times work on the card with CUDA events after a
+    synchronize: a call that spins the device ~2 ms reads ~2 ms (the host
+    returns at once), with a spread, and the device is inferred from the
+    call's result."""
+    from repro_torch.engine.autotune import measure
+
+    x = torch.ones(4, device=cuda_device)
+
+    def spin():
+        torch.cuda._sleep(int(2e-3 * 1.98e9))  # >= 2 ms at <= 1.98 GHz
+        return x + 1
+
+    m = measure(spin, warmup=1, k=5)
+    assert m.k == 5 and len(m.times_us) == 5
+    assert m.times_us == tuple(sorted(m.times_us))
+    assert 1.9e3 <= m.median_us <= 50e3
+    assert 0.0 <= m.spread_us < m.median_us
+    host = measure(spin, warmup=1, k=5, device="cpu")  # the enqueue only
+    torch.cuda.synchronize()
+    assert host.median_us < m.median_us
+
+
+def _tripped_engine(cfg, model, spec, device, **ctx_kw):
+    """An engine on ``spec`` whose context board trips ``sspnna`` after one
+    attributed failure and never cools down by itself (the clock is the
+    caller's list ``now``)."""
+    from repro_torch.engine.backends import BreakerBoard
+    from repro_torch.serving.scene_engine import SceneEngine
+
+    now = [0.0]
+    reg = engine.default_registry().view()
+    reg.breakers = BreakerBoard(reg, failure_threshold=1, cooldown_s=60.0,
+                                clock=lambda: now[0])
+    ctx = engine.ExecutionContext(device=device, registry=reg, **ctx_kw)
+    return SceneEngine(cfg, model, 2, spec=spec, ctx=ctx), now
+
+
+@pytest.mark.cuda
+def test_rerouted_signature_captures_a_second_graph(cuda_device):
+    """A tripped ``sspnna`` breaker reroutes new plans to ``reference``:
+    their waves capture a second graph, which runs no ``sspnna_fused``, and
+    each graph's replay matches the eager wave of its plans within 1e-5;
+    after the probe closes the breaker, the first graph replays again."""
+    from repro_torch.serving.scene_engine import SceneRequest
+
+    cfg = SCN_SERVE_CFG
+    scenes = [_serve_scene(s, n) for s, n in ((320, None), (321, 800))]
+    spec = engine.build_plan_spec(scenes, cfg)
+    model = SCNUNet(cfg, device=cuda_device)
+    eng, now = _tripped_engine(cfg, model, spec, cuda_device)
+
+    def serve(rid0):
+        hs = eng.submit([SceneRequest(rid0 + i, t)
+                         for i, t in enumerate(scenes)])
+        eng.serve()
+        return np.stack([h.result().logits for h in hs])
+
+    def eager(backend_of_plans):
+        plans = [eng.cache.get_or_build(
+            t, cfg, device=cuda_device, topology=eng._topology,
+            **eng._plan_kw) for t in scenes]
+        assert {lvl.sub.dispatch.backend for p in plans
+                for lvl in p.levels} == {backend_of_plans}
+        with torch.inference_mode():
+            return engine.apply_unet(
+                model, torch.cat([torch.from_numpy(t.feats)
+                                  for t in scenes]),
+                engine.stack_plans(plans), device=cuda_device), plans
+
+    first = serve(0)
+    want, plans = eager(engine.SSPNNA)
+    np.testing.assert_allclose(first.reshape(-1, cfg.n_classes),
+                               want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    sspnna_key = eng.graph_key(cfg.capacity, plans[0])
+    assert eng.ctx.registry.breakers.record_failure(engine.SSPNNA)
+    rerouted = serve(10)
+    want, plans = eager(engine.REFERENCE)
+    np.testing.assert_allclose(rerouted.reshape(-1, cfg.n_classes),
+                               want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    ref_key = eng.graph_key(cfg.capacity, plans[0])
+    assert eng.graphs.keys() == [sspnna_key, ref_key]
+    assert eng.n_compilations == 2
+    assert eng.graphs.launches(ref_key)["sspnna_fused"] == 0
+    assert eng.graphs.launches(sspnna_key)["sspnna_fused"] > 0
+    now[0] += 61.0   # the cooldown passes: the next new build probes
+    hs = eng.submit([SceneRequest(20, _serve_scene(322, 600))])
+    eng.serve()
+    hs[0].result()
+    assert eng.health()["breakers"]["sspnna"]["state"] == "closed"
+    replays = eng.graphs.replays
+    again = serve(30)   # rebuilt on sspnna: the first graph replays
+    assert eng.graphs.replays == replays + 1 and len(eng.graphs) == 2
+    np.testing.assert_array_equal(again, first)
+    eng.close()
+
+
+@pytest.mark.cuda
+def test_idle_reprofile_between_replays_keeps_the_bits(cuda_device):
+    """The idle hook re-profiles (launching ``sspnna_fused`` on synthetic
+    workloads) between two serves; the second serve's graph replay gives
+    the first's bits, and the profiled launches tick the counter outside
+    any graph."""
+    from repro_torch.engine.autotune import CostTable, signature
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    cfg = SCN_SERVE_CFG
+    scenes = [_serve_scene(s, n) for s, n in ((330, None), (331, 900))]
+    spec = engine.build_plan_spec(scenes, cfg)
+    model = SCNUNet(cfg, device=cuda_device)
+    table = CostTable(fingerprint="card-test")
+    ctx = engine.ExecutionContext(device=cuda_device, autotune=table,
+                                  autotune_reprofile_ms=60_000.0)
+    eng = SceneEngine(cfg, model, 2, spec=spec, ctx=ctx)
+
+    def serve(rid0):
+        hs = eng.submit([SceneRequest(rid0 + i, t)
+                         for i, t in enumerate(scenes)])
+        eng.serve()
+        return np.stack([h.result().logits for h in hs])
+
+    first = serve(0)
+    table.note_miss(signature(4096, 4096, 16, 16, density=0.05),
+                    delta_o=64, delta_i=256, backend="sspnna")
+    launches, replays = sspnna_fused.launches, eng.graphs.replays
+    second = serve(10)
+    assert eng.scheduler.idle_ticks == 2
+    assert table.miss_count == 0 and len(table) == 2
+    assert all(e.median_us > 0 for e in table.entries())
+    assert eng.graphs.replays == replays + 1 and len(eng.graphs) == 1
+    assert sspnna_fused.launches > launches  # the profiler's, not a replay's
+    np.testing.assert_array_equal(second, first)
+    eng.close()
 
 
 @pytest.mark.cuda

@@ -133,7 +133,7 @@ def test_apply_unet_without_kernel_matches_jax(plans):
 def test_registry_falls_back_only_without_tiles(plans):
     _, _, ours, _ = plans
     lvl = ours.levels[0]
-    reg = engine.make_registry()
+    reg = engine.default_registry().view()
     assert reg.resolve(lvl.sub, "auto") == lvl.sub.dispatch.backend
     assert reg.resolve(lvl.down, engine.SSPNNA) == engine.REFERENCE
     assert reg.resolve(lvl.sub, engine.SSPNNA) == engine.SSPNNA
@@ -142,7 +142,7 @@ def test_registry_falls_back_only_without_tiles(plans):
 
 
 def test_registry_refuses_a_second_backend_of_one_name():
-    reg = engine.make_registry()
+    reg = engine.default_registry().view()
     with pytest.raises(ValueError, match="already registered"):
         reg.register(engine.SSPNNA, reg.get(engine.SSPNNA))
     with pytest.raises(ValueError, match="invalid backend name"):
@@ -181,7 +181,7 @@ def test_port_imports_no_jax():
         for f in (src / "repro_torch").rglob("*.py"))
     assert {"repro_torch.serving.engine", "repro_torch.models.transformer",
             "repro_torch.kernels.flash.flash", "repro_torch.engine.context",
-            "repro_torch.serving.graphs",
+            "repro_torch.serving.graphs", "repro_torch.engine.autotune",
             "repro_torch.serving.scene_engine"} <= set(modules)
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "

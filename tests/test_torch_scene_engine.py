@@ -234,22 +234,48 @@ def test_oversize_scene_shed_with_capacity_reason(unet):
     eng.close()
 
 
-def test_overflowing_plan_raises_instead_of_running(unet, specs):
-    """A scene over the pinned tile budget gets a reference level, so its
-    plan's signature leaves the bucket's: the wave fails, nothing runs
-    eagerly, and the requests go back to the queue."""
-    _, model = unet
-    spec, _ = specs
-    tight = engine.PlanSpec(tuple(
+def _tight(spec):
+    """``spec`` with level 0's tile budget cut to 2 tiles."""
+    return type(spec)(tuple(
         dataclasses.replace(d, n_tiles=2) if li == 0 else d
         for li, d in enumerate(spec.levels)))
-    eng = SceneEngine(UNetConfig(**CFG), model, 2, spec=tight, ctx=_ctx())
-    eng.submit([SceneRequest(0, _scene(60)), SceneRequest(1, _scene(61))])
-    with pytest.raises(RuntimeError, match="tile"):
-        eng.serve()
-    assert sorted(r.rid for r in eng.queue) == [0, 1]
-    assert eng.n_compilations == 0
-    eng.close()
+
+
+@pytest.mark.parametrize("wave,served", [
+    ([(60, None), (61, None)], True),   # both over level 0's budget
+    ([(62, 400), (61, None)], False),   # one over it, one within it
+])
+def test_overflowing_plans_match_jax_engine(unet, specs, wave, served):
+    """A scene over a pinned tile budget gets a reference level, so its
+    plan leaves the spec's signature. The JAX engine serves a wave whose
+    plans all overflowed alike on a signature of their own and raises for
+    a wave whose plans disagree; the port does the same, with the same
+    number of compiles (graphs), logits within 1e-4 and the raised wave's
+    requests back in the queue."""
+    tree, model = unet
+    spec, jspec = specs
+    jeng = JSceneEngine(JUNetConfig(**CFG), tree, 2, spec=_tight(jspec))
+    eng = SceneEngine(UNetConfig(**CFG), model, 2, spec=_tight(spec),
+                      ctx=_ctx())
+    out = []
+    for e, req, mk in ((jeng, JSceneRequest, _jscene),
+                       (eng, SceneRequest, _scene)):
+        handles = e.submit([req(i, mk(*w)) for i, w in enumerate(wave)])
+        if served:
+            e.serve()
+            out.append({h.request.rid: np.asarray(h.result().logits)
+                        for h in handles})
+        else:
+            with pytest.raises(RuntimeError, match="diverged from the wave"):
+                e.serve()
+            assert sorted(r.rid for r in e.queue) == [0, 1]
+        e.close()
+    assert eng.n_compilations == jeng.n_compilations == int(served)
+    if served:
+        (key,) = eng._buckets
+        assert key[1][1][0][0].backend == engine.REFERENCE  # level 0's sub
+        for rid, want in out[0].items():
+            assert _rel(out[1][rid], want) <= TOL
 
 
 def test_mixed_bucket_wave_raises(unet):

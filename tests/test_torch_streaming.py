@@ -31,6 +31,7 @@ from repro.models.scn import UNetConfig as JUNetConfig
 from repro.models.scn import init_unet
 from repro.serving import faults as jfaults
 from repro.serving.scene_engine import SceneEngine as JSceneEngine
+from repro.serving.scene_engine import SceneRequest as JSceneRequest
 from repro.sparse.tensor import SparseVoxelTensor as JSparseVoxelTensor
 from repro.sparse.voxelize import voxelize as jvoxelize
 from repro_torch import engine
@@ -44,7 +45,7 @@ from repro_torch.core.host_meta import (
     pack_stream_frame_np,
     transposed_coir_np,
 )
-from repro_torch.data.scenes import N_CLASSES, make_lidar_sweep
+from repro_torch.data.scenes import N_CLASSES, make_lidar_sweep, make_scene
 from repro_torch.engine.backends import DEFAULT_REGISTRY
 from repro_torch.models.scn import SCNUNet, UNetConfig, params_from_jax
 from repro_torch.serving import faults
@@ -695,18 +696,65 @@ def test_two_interleaved_streams_one_frame_each_per_wave(unet, specs):
             np.testing.assert_array_equal(a.logits, b.logits)
 
 
-def test_stream_frame_over_the_tile_budget_raises(unet, specs):
-    """A patched plan that needs more tiles than the pinned budget leaves
-    the bucket's signature: its wave raises, as a one-shot scene's does."""
-    _, model = unet
+def _tight_spec(cfg_cls, eng, tensor_cls):
+    """A spec pinned from the first frames of sweeps 0-1 at 0.3x their
+    tile counts, so sweep 7's frames overflow levels 0-1."""
     firsts = [_sweep_scenes(s, n=1)[0][0] for s in (0, 1)]
-    tight = engine.build_plan_spec([SparseVoxelTensor(*a) for a in firsts],
-                                   UNetConfig(**SCFG), tile_margin=0.3)
+    return eng.build_plan_spec([tensor_cls(*a) for a in firsts],
+                               cfg_cls(**SCFG), tile_margin=0.3)
+
+
+def _small_scene(n_active=400):
+    """A one-shot scene of the serving config within the tight budget."""
+    c, f, _, m = make_scene(5, SRES, SCAP)
+    m = m.copy()
+    m[np.flatnonzero(m)[n_active:]] = False
+    return c, np.where(m[:, None], f, 0).astype(np.float32), m
+
+
+def test_stream_frame_over_the_tile_budget_raises(unet):
+    """A stream frame over the pinned tile budget beside a one-shot scene
+    within it: the two plans' signatures disagree, so the wave raises as
+    the JAX engine's does, and both requests go back to the queue."""
+    tree, model = unet
+    frames, shifts = _sweep_scenes(7, n=1)
+    for eng, tensor, req in (
+            (JSceneEngine(JUNetConfig(**SCFG), tree, 2, spec=_tight_spec(
+                JUNetConfig, jengine, JSparseVoxelTensor)),
+             JSparseVoxelTensor, JSceneRequest),
+            (SceneEngine(UNetConfig(**SCFG), model, 2, ctx=_ctx(),
+                         spec=_tight_spec(UNetConfig, engine,
+                                          SparseVoxelTensor)),
+             SparseVoxelTensor, SceneRequest)):
+        eng.open_stream().submit(tensor(*frames[0]), shifts[0])
+        eng.submit(req(50, tensor(*_small_scene())))
+        with pytest.raises(RuntimeError, match="diverged from the wave"):
+            eng.serve()
+        assert sorted(r.rid for r in eng.queue) == [0, 50]
+        assert eng.n_compilations == 0
+        eng.close()
+
+
+def test_stream_frames_over_the_tile_budget_serve_as_jax(unet):
+    """Frames that all overflow the pinned budget at the same levels share
+    one signature of their own: the JAX engine serves them on one compile,
+    and the port on one graph, with the same modes and logits within
+    1e-4."""
+    tree, model = unet
     frames, shifts = _sweep_scenes(7, n=2)
-    eng = SceneEngine(UNetConfig(**SCFG), model, 2, spec=tight, ctx=_ctx())
-    with pytest.raises(RuntimeError, match="more tiles than the pinned"):
-        eng.serve_stream([SparseVoxelTensor(*a) for a in frames], shifts)
+    jeng = JSceneEngine(JUNetConfig(**SCFG), tree, 2, spec=_tight_spec(
+        JUNetConfig, jengine, JSparseVoxelTensor))
+    want = jeng.serve_stream([JSparseVoxelTensor(*a) for a in frames],
+                             shifts)
+    jeng.close()
+    eng = SceneEngine(UNetConfig(**SCFG), model, 2, ctx=_ctx(),
+                      spec=_tight_spec(UNetConfig, engine, SparseVoxelTensor))
+    got = eng.serve_stream([SparseVoxelTensor(*a) for a in frames], shifts)
     eng.close()
+    assert eng.n_compilations == jeng.n_compilations == 1
+    for g, w in zip(got, want):
+        assert g.plan_info["mode"] == w.plan_info["mode"]
+        assert _rel(g.logits, np.asarray(w.logits)) <= TOL
 
 
 def test_stream_fifo_admission_under_policy():
