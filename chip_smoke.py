@@ -143,6 +143,25 @@
    (``device_ms``);
    holds flash at layer 0's inputs (D=128) against its plain version and
    times it beside SDPA; times a wave's prefill and decode.
+18. Trains the SCN U-Net at its published widths ("SCN training", after the
+   streaming phase): 30 SGD steps at lr 0.3 over seeds 0-2 on untiled
+   plans, so every conv runs ``reference`` under autograd and no kernel
+   launches (the counters stay at 0); prints the median step (forward,
+   backward, update, ending in a synchronize), its device busy share,
+   peak memory and the loss, which must fall. Then the trained weights run
+   on seed 0's adaptive tiled plan with ``backend="auto"``: 15
+   ``sspnna_fused`` launches, logits within 1e-3 of ``reference``.
+19. Trains StableLM-2 1.6B at its published widths and depth ("LM
+   training", last): bf16 with remat, AdamW with f32 moments, 10 steps of
+   4 x 1024 ``TokenStream`` tokens in 2 microbatches, no kernel launch;
+   prints step ms, tokens/s, the share of the bf16 dense peak, peak
+   memory, loss and grad norm (the loss must fall). After step 5 a
+   ``save_async`` of the state is written while steps 6-10 run, then
+   restored onto the card and held bit for bit against the state it
+   saved. A prefill of the trained weights launches flash once a layer
+   and matches the plain attention (f32 within 1e-3; bf16 within twice
+   bf16's own distance). Reduced Moonshot takes three AdamW steps: finite
+   loss, the MoE auxiliaries, no expert-GEMM launch.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
@@ -239,11 +258,60 @@ MOE_CHECK_LAYERS = 4
 # tolerance, relative to the largest output (the residual sums of a layer
 # cancel, so elementwise relative errors of near-zero sums mean nothing).
 MOE_BF16_TOL = 2e-2
+# SCN training: SGD at the JAX example's lr over seeds 0-2 in turn
+SCN_TRAIN_STEPS, SCN_TRAIN_LR = 30, 0.3
+# LM training: StableLM-2 1.6B at full width and depth, bf16 with remat,
+# AdamW with f32 moments at the JAX example's lr; batches of 4 x 1024
+# tokens in 2 microbatches; a checkpoint after step LM_CKPT_STEP
+LM_TRAIN_ARCH, LM_TRAIN_LR = "stablelm-1.6b", 1e-3
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 4, 1024, 2
+LM_TRAIN_STEPS, LM_CKPT_STEP = 10, 5
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def kernel_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.sspnna import sspnna
+
+    return {"sspnna_fused": sspnna.sspnna_fused.launches,
+            "sspnna_tiles": sspnna.sspnna_tiles.launches,
+            "flash_fwd": flash_attention.launches,
+            "moe_gemm": grouped_gemm.launches}
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.kernels.flash.flash import flash_attention
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.sspnna import sspnna
+
+    sspnna.sspnna_fused.launches = sspnna.sspnna_tiles.launches = 0
+    flash_attention.launches = grouped_gemm.launches = 0
+
+
+def launched_only(*kernels: str) -> bool:
+    """No wrapper but those of ``kernels`` has launched since the counts
+    were last set to 0."""
+    return not any(n for k, n in kernel_counts().items() if k not in kernels)
+
+
+def kernel_vs_plain(kernel: str, kernel_side, plain_side, what: str):
+    """``(kernel_side(), plain_side())``, failing the run unless the first
+    launched ``kernel`` and the second did not: a comparison whose two
+    sides run the same code would pass having measured nothing."""
+    before = kernel_counts()[kernel]
+    got = kernel_side()
+    between = kernel_counts()[kernel]
+    want = plain_side()
+    check(between > before, f"{what}: the kernel side launched no {kernel}")
+    check(kernel_counts()[kernel] == between,
+          f"{what}: the plain side launched {kernel}")
+    return got, want
 
 
 def card_line() -> str:
@@ -450,7 +518,6 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     auto logits)."""
     from repro_torch import engine
     from repro_torch.data.scenes import make_scene
-    from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.sspnna import ops, sspnna
     from repro_torch.kernels.sspnna.ref import random_tile_tables
     from repro_torch.models.scn import SCNUNet, UNetConfig, miou
@@ -466,7 +533,9 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
                                  (8192, 6, 18, 30, 48, 300)]:
         args = [torch.from_numpy(a).to(dev) for a in random_tile_tables(
             rng, v=v, c=c, n=n, t=t, d_i=d_i, d_o=d_o)]
-        got, want = fused(*args, n_out=v), plain(*args, n_out=v)
+        got, want = kernel_vs_plain(
+            "sspnna_fused", lambda: fused(*args, n_out=v),
+            lambda: plain(*args, n_out=v), f"random tables V={v}")
         torch.cuda.synchronize()
         abs_err, rel_err = max_err(got, want)
         dead = int((args[5] == 0).sum())
@@ -497,7 +566,7 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
               f"{plan_s:.1f} s: {levels}")
         requests.append((seed, feats, labels, mask, host))
 
-    fused.launches = flash_attention.launches = sspnna.sspnna_tiles.launches = 0
+    zero_kernel_counts()
     uploaded = {}
     with torch.inference_mode():
         for seed, feats, labels, mask, host in requests:
@@ -528,9 +597,8 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
                   f"kernel launched {launched} times for {expected} sspnna convs")
             check(rel_err <= LOGITS_TOL, "auto and reference logits disagree")
     total_launches = fused.launches
-    check(flash_attention.launches == 0, "the SCN path launched flash")
-    check(sspnna.sspnna_tiles.launches == 0,
-          "the SCN path launched sspnna_tiles")
+    check(launched_only("sspnna_fused"), "the SCN path launched another "
+          "kernel")
 
     phase("SCN replay")
     calls = []
@@ -552,7 +620,9 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     rows = []
     with torch.inference_mode():
         for i, (args, kw) in enumerate(calls):
-            got, want = fused(*args, **kw), plain(*args, **kw)
+            got, want = kernel_vs_plain(
+                "sspnna_fused", lambda: fused(*args, **kw),
+                lambda: plain(*args, **kw), f"launch {i}")
             abs_err, rel_err = max_err(got, want)
             check(rel_err <= KERNEL_TOL, f"launch {i}: kernel disagrees")
             worst_abs = max(worst_abs, abs_err)
@@ -720,7 +790,9 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
     for t, d_i, d_o, k, c, n, dt in TILE_STACK_CASES:
         feats, idx, w = (x.to(dev) for x in random_tile_stack(
             rng, t=t, d_i=d_i, d_o=d_o, k=k, c=c, n=n, dtype=dt))
-        got, want = tiles(feats, idx, w), plain(feats, idx, w)
+        got, want = kernel_vs_plain(
+            "sspnna_tiles", lambda: tiles(feats, idx, w),
+            lambda: plain(feats, idx, w), f"random stack T={t}")
         torch.cuda.synchronize()
         abs_err, rel_err = max_err(got.float(), want.float())
         dead = int((idx < 0).all(dim=(1, 2)).sum())
@@ -765,7 +837,7 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
                      and lvl.sub.tiles.local_idx is args[4])
                 for args, _ in calls]
     first_call = {li: i for i, li in reversed(list(enumerate(level_of)))}
-    tiles.launches = fused.launches = 0
+    zero_kernel_counts()
     ops.sspnna_tiles = record
     try:
         with torch.inference_mode():
@@ -848,16 +920,19 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
     rows = []
     with torch.inference_mode():
         for i, ((args, kw), got) in enumerate(zip(calls, pg_out)):
-            want = fused(*args, **kw)
+            want, oracle = kernel_vs_plain(
+                "sspnna_fused", lambda: fused(*args, **kw),
+                lambda: ops.run_sspnna_conv(*args[:5], n_out=kw["n_out"],
+                                            use_kernel=False), f"conv {i}")
             abs_err, rel_err = max_err(got, want)
             check(rel_err <= KERNEL_TOL, f"conv {i}: pre-gathered disagrees "
                   "with fused")
-            oracle = ops.run_sspnna_conv(*args[:5], n_out=kw["n_out"],
-                                         use_kernel=False)
             check(max_err(oracle, want)[1] <= KERNEL_TOL,
                   f"conv {i}: the plain arm disagrees with fused")
             (tf, idx, w), _ = recorded[1 + i]
-            k_out, p_out = tiles(tf, idx, w), plain(tf, idx, w)
+            k_out, p_out = kernel_vs_plain(
+                "sspnna_tiles", lambda: tiles(tf, idx, w),
+                lambda: plain(tf, idx, w), f"conv {i}")
             k_abs, k_rel = max_err(k_out, p_out)
             check(k_rel <= KERNEL_TOL, f"conv {i}: sspnna_tiles disagrees "
                   "with its plain version")
@@ -923,7 +998,9 @@ def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
     with torch.inference_mode():
         for j, (li, out) in enumerate(split_out.items()):
             (tf, idx, w), _ = recorded[1 + len(calls) + j]
-            k_abs, k_rel = max_err(tiles(tf, idx, w), plain(tf, idx, w))
+            k_abs, k_rel = max_err(*kernel_vs_plain(
+                "sspnna_tiles", lambda: tiles(tf, idx, w),
+                lambda: plain(tf, idx, w), f"plane-split L{li}"))
             check(k_rel <= KERNEL_TOL, f"level {li}: split launch disagrees")
             worst_abs = max(worst_abs, k_abs)
             x, wt = calls[first_call[li]][0][:2]
@@ -996,8 +1073,6 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
     scenes and the blocking serve's wave logits."""
     from repro_torch import engine
     from repro_torch.data.scenes import make_scene
-    from repro_torch.kernels.flash.flash import flash_attention
-    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
     from repro_torch.kernels.sspnna import ops, sspnna
     from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
     from repro_torch.sparse.tensor import SparseVoxelTensor
@@ -1021,8 +1096,7 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
     phase("SCN serving")
     ctx = engine.ExecutionContext(device=dev)
     # the serving path's counts: set to 0 here, read after both serves
-    fused.launches = sspnna.sspnna_tiles.launches = 0
-    flash_attention.launches = grouped_gemm.launches = 0
+    zero_kernel_counts()
     runs = {}
     with torch.inference_mode():
         for sync in (True, False):
@@ -1068,8 +1142,7 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
           f"replays: {launched} launches on the device")
     check(replayed > 0 and captured > 0, "the wave did not run sspnna_fused "
           "inside the bucket's graph")
-    check(sspnna.sspnna_tiles.launches == flash_attention.launches
-          == grouped_gemm.launches == 0,
+    check(launched_only("sspnna_fused"),
           "the SCN serving path launched another kernel")
     print(f"plan cache: a miss costs {runs[True][3] / len(scenes):.1f} ms of "
           f"plan stage a scene, a hit {runs[False][3] / len(scenes):.3f} ms")
@@ -1083,9 +1156,13 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
         feats = [torch.from_numpy(t.feats).to(dev) for t in scenes]
         for i, seed in enumerate(SEEDS):
             wave = torch.from_numpy(runs[True][1][i]).to(dev)
-            own = engine.apply_unet(model, feats[i], plans[i], device=dev)
-            ref = engine.apply_unet(model, feats[i], plans[i],
-                                    backend="reference", device=dev)
+            own, ref = kernel_vs_plain(
+                "sspnna_fused",
+                lambda: engine.apply_unet(model, feats[i], plans[i],
+                                          device=dev),
+                lambda: engine.apply_unet(model, feats[i], plans[i],
+                                          backend="reference", device=dev),
+                f"served seed {seed}")
             _, own_err = max_err(wave, own)
             _, ref_err = max_err(wave, ref)
             print(f"seed {seed}: wave logits vs its own apply_unet on the "
@@ -1148,8 +1225,9 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
         for j, (args, kw) in enumerate(calls):
             d_ms = device_ms(lambda: fused(*args, **kw), 10)
             if j < per_wave:
-                abs_err, rel_err = max_err(fused(*args, **kw),
-                                           plain(*args, **kw))
+                abs_err, rel_err = max_err(*kernel_vs_plain(
+                    "sspnna_fused", lambda: fused(*args, **kw),
+                    lambda: plain(*args, **kw), f"wave launch {j}"))
                 check(rel_err <= KERNEL_TOL, f"wave launch {j} disagrees")
                 worst_abs = max(worst_abs, abs_err)
                 wave_dev += d_ms
@@ -1189,8 +1267,6 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
     from repro_torch.core.host_meta import pack_stream_frame_np
     from repro_torch.data.scenes import make_lidar_sweep
     from repro_torch.engine.plan import plan_leaves
-    from repro_torch.kernels.flash.flash import flash_attention
-    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
     from repro_torch.kernels.sspnna import ops, sspnna
     from repro_torch.serving.graphs import COUNTED
     from repro_torch.serving.scene_engine import SceneEngine
@@ -1223,8 +1299,7 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
     phase("SCN streaming")
     ctx = engine.ExecutionContext(device=dev)
     # the streaming path's counts: set to 0 here, read after both serves
-    fused.launches = sspnna.sspnna_tiles.launches = 0
-    flash_attention.launches = grouped_gemm.launches = 0
+    zero_kernel_counts()
     runs = {}
     with torch.inference_mode():
         for sync in (True, False):
@@ -1286,8 +1361,7 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
     check(replayed > 0 and per_replay["sspnna_fused"] == expected,
           "the stream waves did not run sspnna_fused once per sspnna conv "
           "inside the bucket's graph")
-    check(sspnna.sspnna_tiles.launches == flash_attention.launches
-          == grouped_gemm.launches == 0
+    check(launched_only("sspnna_fused")
           and all(e.graphs.replayed[k] == 0 for e in engines
                   for k in COUNTED if k != "sspnna_fused"),
           "the SCN streaming path launched another kernel")
@@ -1317,9 +1391,12 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
                 "from-scratch build")
             plan = engine.upload_scene_plan(host, dev)
             feats = torch.from_numpy(pf).to(dev)
-            own = engine.apply_unet(model, feats, plan, device=dev)
-            ref = engine.apply_unet(model, feats, plan, backend="reference",
-                                    device=dev)
+            own, ref = kernel_vs_plain(
+                "sspnna_fused",
+                lambda: engine.apply_unet(model, feats, plan, device=dev),
+                lambda: engine.apply_unet(model, feats, plan,
+                                          backend="reference", device=dev),
+                f"stream frame {r.frame_no}")
             # the frame's own forwards, scattered to the caller's rows as
             # the drain scatters the stream's (inactive rows stay 0)
             canon = torch.from_numpy(fr).to(dev).long()
@@ -1380,7 +1457,9 @@ def scn_stream_path(dev: torch.device, phase: Phases, model, cfg) -> dict:
               "the graph records")
         wave_dev = bound = worst_abs = 0.0
         for j, (args, kw) in enumerate(calls):
-            abs_err, rel_err = max_err(fused(*args, **kw), plain(*args, **kw))
+            abs_err, rel_err = max_err(*kernel_vs_plain(
+                "sspnna_fused", lambda: fused(*args, **kw),
+                lambda: plain(*args, **kw), f"stream wave launch {j}"))
             check(rel_err <= KERNEL_TOL, f"stream wave launch {j} disagrees")
             worst_abs = max(worst_abs, abs_err)
             wave_dev += device_ms(lambda: fused(*args, **kw), 10)
@@ -1429,8 +1508,6 @@ def scn_autotune_path(dev: torch.device, phase: Phases, model, cfg, seed0,
     plan's. Returns the numbers for the kernel's JSON entry."""
     from repro_torch import engine
     from repro_torch.engine import autotune
-    from repro_torch.kernels.flash.flash import flash_attention
-    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
     from repro_torch.kernels.sspnna import sspnna
     from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
 
@@ -1438,8 +1515,7 @@ def scn_autotune_path(dev: torch.device, phase: Phases, model, cfg, seed0,
     board = engine.default_registry().breakers
     phase("SCN autotune: measured")
     # the measured path's counts: set to 0 here, read at the phase's end
-    fused.launches = sspnna.sspnna_tiles.launches = 0
-    flash_attention.launches = grouped_gemm.launches = 0
+    zero_kernel_counts()
     host, plan = seed0["host"], seed0["plan"]
     table = autotune.CostTable()
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1485,9 +1561,12 @@ def scn_autotune_path(dev: torch.device, phase: Phases, model, cfg, seed0,
             levels[li]["tuned"] = b["dispatch"].backend
         tuned = engine.upload_scene_plan(tuned_host, dev)
         feats0 = seed0["feats"]
-        logits = engine.apply_unet(model, feats0, tuned, device=dev)
-        ref = engine.apply_unet(model, feats0, tuned, backend="reference",
-                                device=dev)
+        logits, ref = kernel_vs_plain(
+            "sspnna_fused",
+            lambda: engine.apply_unet(model, feats0, tuned, device=dev),
+            lambda: engine.apply_unet(model, feats0, tuned,
+                                      backend="reference", device=dev),
+            "tuned plan")
         check(logits.shape == (CAPACITY, cfg.n_classes)
               and bool(torch.isfinite(logits).all()),
               "tuned logits not finite or of the wrong shape")
@@ -1512,13 +1591,11 @@ def scn_autotune_path(dev: torch.device, phase: Phases, model, cfg, seed0,
           and other.load_status == "fingerprint-mismatch" and len(other) == 0,
           "the cost table's save/load round trip failed")
     measured_launches = fused.launches
-    check(sspnna.sspnna_tiles.launches == flash_attention.launches
-          == grouped_gemm.launches == 0 and board.states() == {},
+    check(launched_only("sspnna_fused") and board.states() == {},
           "the measured phase launched another kernel or tripped a breaker")
 
     phase("SCN autotune: reprofile")
-    fused.launches = sspnna.sspnna_tiles.launches = 0
-    flash_attention.launches = grouped_gemm.launches = 0
+    zero_kernel_counts()
     cold = autotune.CostTable()
     engine.build_scene_plan_host(scenes[0], cfg, autotune=cold)
     missed = [gk for gk, _ in cold.hottest_misses()]
@@ -1572,8 +1649,7 @@ def scn_autotune_path(dev: torch.device, phase: Phases, model, cfg, seed0,
     check(fused.launches - captured - per_replay == 3 * n_sspnna
           and replayed == per_replay,
           "the profiler's launches do not add up")
-    check(sspnna.sspnna_tiles.launches == flash_attention.launches
-          == grouped_gemm.launches == 0, "the reprofile phase launched "
+    check(launched_only("sspnna_fused"), "the reprofile phase launched "
           "another kernel")
     _, wave_err = max_err(torch.from_numpy(logits), torch.from_numpy(served))
     print(f"reprofile engine's wave vs the serving phase's: rel "
@@ -1602,8 +1678,6 @@ def scn_breaker_path(dev: torch.device, phase: Phases, model, cfg, spec,
     for the kernel's JSON entry."""
     from repro_torch import engine
     from repro_torch.engine.backends import OPEN, BreakerBoard
-    from repro_torch.kernels.flash.flash import flash_attention
-    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
     from repro_torch.kernels.sspnna import sspnna
     from repro_torch.serving.api import AdmissionPolicy
     from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultSpec
@@ -1611,8 +1685,7 @@ def scn_breaker_path(dev: torch.device, phase: Phases, model, cfg, spec,
 
     fused = sspnna.sspnna_fused
     phase("SCN breakers")
-    fused.launches = sspnna.sspnna_tiles.launches = 0
-    flash_attention.launches = grouped_gemm.launches = 0
+    zero_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     now = [0.0]
     reg = engine.default_registry().view()
@@ -1700,14 +1773,311 @@ def scn_breaker_path(dev: torch.device, phase: Phases, model, cfg, spec,
     print(f"SCN breakers path: sspnna_fused counter {fused.launches} "
           f"({captured} recorded at capture), {replayed} run by replays: "
           f"{launched} launches on the device; peak memory {peak:.2f} GiB")
-    check(replayed > 0 and sspnna.sspnna_tiles.launches
-          == flash_attention.launches == grouped_gemm.launches == 0,
+    check(replayed > 0 and launched_only("sspnna_fused"),
           "the breaker path ran no sspnna_fused replay or another kernel")
     return {"launches": launched, "wave_errors": eng.scheduler.wave_errors,
             "trips": states["sspnna"]["trips"],
             "generation": board.generation, "graphs": len(eng.graphs),
             "wave_ms": wave_ms, "rerouted_max_rel_err": reroute_err,
             "reclosed_max_rel_err": again_err, "peak_gib": peak}
+
+
+def scn_training_path(dev: torch.device, phase: Phases, card: str,
+                      seed0: dict) -> dict:
+    """Phase "SCN training": the U-Net at its published widths trained by
+    SGD on seeds 0-2 (untiled plans, so every conv runs ``reference`` under
+    autograd and no kernel launches), then the trained weights on seed 0's
+    adaptive tiled plan with ``backend="auto"`` (``sspnna_fused`` once an
+    sspnna conv) against ``reference``. Returns the launch counts and
+    numbers for the JSON."""
+    from repro_torch import engine
+    from repro_torch.data.scenes import make_scene
+    from repro_torch.models.scn import SCNUNet, segmentation_loss
+    from repro_torch.sparse.tensor import SparseVoxelTensor
+
+    phase("SCN training")
+    cfg = seed0["cfg"]
+    check((cfg.widths, cfg.reps, cfg.n_classes) == ((16, 32, 48, 64), 2, 20),
+          "the SCN is not at its published widths")
+    scenes = []
+    for seed in SEEDS:
+        coords, feats, labels, mask = make_scene(
+            seed, RESOLUTION, CAPACITY, points_per_unit=POINTS_PER_UNIT)
+        t0 = time.perf_counter()
+        host = engine.build_scene_plan_host(
+            SparseVoxelTensor(coords, feats, mask), cfg, plan_tiles=False)
+        plan_s = time.perf_counter() - t0
+        check(all(lvl.sub.tiles is None for lvl in host.levels),
+              "an untiled plan holds tiles")
+        scenes.append((torch.from_numpy(feats).to(dev),
+                       engine.upload_scene_plan(host, dev),
+                       torch.from_numpy(labels).to(dev),
+                       torch.from_numpy(mask).to(dev)))
+        print(f"training scene {seed}: {int(mask.sum())} active voxels, "
+              f"untiled host plan {plan_s:.1f} s")
+    model = SCNUNet(cfg, device=dev,
+                    generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_kernel_counts()
+    losses, step_ms = [], []
+    for step in range(SCN_TRAIN_STEPS):
+        feats, plan, labels, mask = scenes[step % len(scenes)]
+        t0 = time.perf_counter()
+        model.zero_grad()
+        loss, _ = segmentation_loss(
+            engine.apply_unet(model, feats, plan, device=dev), labels, mask)
+        loss.backward()
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.sub_(SCN_TRAIN_LR * prm.grad)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    step_launches = kernel_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    first, last = (statistics.mean(losses[:len(SEEDS)]),
+                   statistics.mean(losses[-len(SEEDS):]))
+    med = statistics.median(step_ms)
+    print(f"SCN training: {SCN_TRAIN_STEPS} SGD steps at lr {SCN_TRAIN_LR} "
+          f"over seeds {SEEDS}: step {med:.3f} ms median (forward, backward, "
+          f"update, ending in a synchronize; first {step_ms[0]:.3f}), "
+          f"{1e3 / med:.3f} scenes/s; peak memory {peak:.2f} GiB above the "
+          f"{held / 2**30:.2f} held before; loss first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f} (mean of the first and last {len(SEEDS)}: "
+          f"{first:.4f} -> {last:.4f}); kernel launches in the steps "
+          f"{step_launches} [{card}]")
+    check(all(np.isfinite(losses)), "a non-finite SCN training loss")
+    check(last < first, "the SCN training loss did not fall")
+    check(not any(step_launches.values()),
+          "an SCN training step launched a kernel")
+    feats, plan, labels, mask = scenes[0]
+    busy = busy_report("SCN train step: device", lambda: (
+        segmentation_loss(engine.apply_unet(model, feats, plan, device=dev),
+                          labels, mask)[0].backward()), med)
+    model.zero_grad(set_to_none=True)
+    del scenes
+
+    feats0, plan0 = seed0["feats"], seed0["plan"]
+    expected = sspnna_convs(plan0, cfg)
+    zero_kernel_counts()
+    with torch.inference_mode():
+        logits, ref = kernel_vs_plain(
+            "sspnna_fused",
+            lambda: engine.apply_unet(model, feats0, plan0, device=dev),
+            lambda: engine.apply_unet(model, feats0, plan0,
+                                      backend="reference", device=dev),
+            "trained weights")
+        launches = kernel_counts()["sspnna_fused"]
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_err(logits, ref)
+    print(f"trained weights on seed 0's adaptive plan: sspnna_fused launches "
+          f"{launches} (planned {expected}); logits vs reference max abs "
+          f"{abs_err:.3g} rel {rel_err:.3g} (tol {LOGITS_TOL}) [{card}]")
+    check(bool(torch.isfinite(logits).all()), "non-finite trained logits")
+    check(launches == expected == 15,
+          f"{launches} sspnna_fused launches on the trained weights")
+    check(rel_err <= LOGITS_TOL, "trained weights: auto and reference logits "
+          "disagree")
+    return {"step_ms": med, "peak_gib": peak, "loss_first": losses[0],
+            "loss_last": losses[-1], "busy_ms": busy["busy_ms"],
+            "step_launches": step_launches, "eval_launches": launches,
+            "eval_max_abs_err": abs_err}
+
+
+def lm_training_path(dev: torch.device, phase: Phases, card: str) -> dict:
+    """Phase "LM training": StableLM-2 1.6B at its published widths and
+    depth in bf16 with remat, AdamW with f32 moments, microbatched steps on
+    ``TokenStream`` batches (no kernel launches: the train mode runs plain
+    ops); an asynchronous checkpoint after step ``LM_CKPT_STEP`` restored
+    onto the card against the live state, bit for bit; a prefill of the
+    trained weights through flash against the plain attention; and three
+    AdamW steps of reduced Moonshot. Returns numbers for the JSON."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.flash.flash import flash_attention_plain
+    from repro_torch.models import attention
+    from repro_torch.serving.engine import make_prefill
+    from repro_torch.training import checkpoint, train_loop
+    from repro_torch.training.optimizer import OptHParams, adamw_update
+    from repro_torch.training.tree import tree_leaves, tree_map
+
+    phase("LM training")
+    cfg = get_config(LM_TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_size) == (24, 2048, 32, 64, 5632, 100352),
+          f"{LM_TRAIN_ARCH} is not at its published widths and depth")
+    check(cfg.torch_dtype == torch.bfloat16 and cfg.remat,
+          "the LM trains in bf16 with remat")
+    hp = OptHParams(lr=LM_TRAIN_LR, moment_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_loop.init_train_state(
+        cfg, hp, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    step_fn = train_loop.make_train_step(cfg, hp,
+                                         n_microbatches=LM_TRAIN_MICRO)
+    ds = TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    zero_kernel_counts()
+    losses, norms, step_ms, ckpt = [], [], [], {}
+    for i in range(LM_TRAIN_STEPS):
+        batch = next(ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        print(f"LM train step {i + 1}: {step_ms[-1]:.3f} ms, loss "
+              f"{losses[-1]:.4f}, grad_norm {norms[-1]:.4f}", flush=True)
+        if i + 1 == LM_CKPT_STEP:
+            # the steps' peak; the saved state stays alive below, for the
+            # check only
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            saved, data_state = state, ds.state()
+            t0 = time.perf_counter()
+            checkpoint.save_async(state, str(ckpt_dir), i + 1,
+                                  data_state=data_state)
+            ckpt["snapshot_s"] = time.perf_counter() - t0
+            t_write = time.perf_counter()
+    t0 = time.perf_counter()
+    checkpoint.wait_for_saves()
+    ckpt["wait_s"] = time.perf_counter() - t0
+    ckpt["write_s"] = time.perf_counter() - t_write
+    t0 = time.perf_counter()
+    restored, man = checkpoint.restore(str(ckpt_dir), LM_CKPT_STEP, saved,
+                                       device=dev)
+    torch.cuda.synchronize()
+    ckpt["restore_s"] = time.perf_counter() - t0
+    ckpt["equal"] = all(
+        torch.equal(a, b) and a.dtype == b.dtype
+        for a, b in zip(tree_leaves(saved), tree_leaves(restored),
+                        strict=True))
+    ckpt["gib"] = sum(f.stat().st_size for f in ckpt_dir.rglob("*")
+                      if f.is_file()) / 2**30
+    check(man["data_state"] == data_state and man["step"] == LM_CKPT_STEP,
+          "the checkpoint's manifest")
+    del restored, saved
+    shutil.rmtree(ckpt_dir)
+    print(f"checkpoint after step {LM_CKPT_STEP}: save_async returned in "
+          f"{ckpt['snapshot_s']:.3f} s (snapshot to host); its thread wrote "
+          f"{ckpt['gib']:.2f} GiB while steps {LM_CKPT_STEP + 1}-"
+          f"{LM_TRAIN_STEPS} ran, {ckpt['write_s']:.3f} s from the snapshot "
+          f"to the end of wait_for_saves ({ckpt['wait_s']:.3f} s of it "
+          f"waited after the last step); restore onto the card "
+          f"{ckpt['restore_s']:.3f} s; equal to the state it saved bit for "
+          f"bit: {ckpt['equal']}")
+    check(ckpt["equal"], "the restored checkpoint differs from the state it "
+          "saved")
+    step_launches = kernel_counts()
+    med = statistics.median(step_ms[1:LM_CKPT_STEP])
+    med_writing = statistics.median(step_ms[LM_CKPT_STEP:])
+    share = 6 * n_params * tokens / (med / 1e3) / PEAK_BF16_FLOPS
+    print(f"LM training {LM_TRAIN_ARCH}: {n_params / 1e9:.4f} B parameters, "
+          f"{LM_TRAIN_STEPS} AdamW steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} "
+          f"tokens in {LM_TRAIN_MICRO} microbatches: step {med:.3f} ms median "
+          f"(steps 2-{LM_CKPT_STEP}; first {step_ms[0]:.3f}; "
+          f"{med_writing:.3f} while the checkpoint was written), "
+          f"{tokens / med * 1e3:.1f} tokens/s, {100 * share:.2f}% of the bf16 "
+          f"dense peak (6 N tokens / step time / 989 TFLOP/s; remat's "
+          f"recompute and attention's products not counted); peak memory "
+          f"{peak:.2f} GiB (steps 1-{LM_CKPT_STEP}); loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"grad_norm {norms[0]:.4f} -> {norms[-1]:.4f}; kernel launches in "
+          f"the steps {step_launches} [{card}]")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "a non-finite LM training loss or grad norm")
+    check(losses[-1] < losses[0], "the LM training loss did not fall")
+    check(not any(step_launches.values()), "an LM train step launched a kernel")
+    batch = next(ds)
+    busy = busy_report("LM train step: device",
+                       lambda: step_fn(state, batch), med)
+    # the optimizer's part of a step: one AdamW update of the whole state
+    grads = tree_map(torch.zeros_like, state["params"])
+    ranks = train_loop.layout_ranks(state["params"], cfg)
+    adamw_ms = host_ms(lambda: adamw_update(
+        state["params"], grads, state["opt"], state["step"], hp, ranks), 2)
+    del grads
+    print(f"LM train step: the AdamW update alone {adamw_ms:.3f} ms of the "
+          f"{med:.3f} ms step (median of 2, host clock after synchronize) "
+          f"[{card}]")
+
+    # the trained weights' prefill: flash once a layer, against the plain
+    # attention in bf16 and (the weights cast up) in f32
+    params = state["params"]
+    del state, m
+    toks = torch.from_numpy(batch["tokens"][:2, :LM_TRAIN_SEQ]).to(dev)
+    prefill = make_prefill(cfg)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = to_float32(params)
+    prefill32 = make_prefill(cfg32)
+    kernel_bshd = attention.flash_attention_bshd
+    zero_kernel_counts()
+    def plain_side():
+        attention.flash_attention_bshd = flash_attention_plain
+        try:
+            return prefill(params, toks)[0], prefill32(params32, toks)[0]
+        finally:
+            attention.flash_attention_bshd = kernel_bshd
+
+    with torch.inference_mode():
+        got = prefill(params, toks)[0]
+        torch.cuda.synchronize()
+        prefill_launches = kernel_counts()["flash_fwd"]
+        got32, (want, want32) = kernel_vs_plain(
+            "flash_fwd", lambda: prefill32(params32, toks)[0], plain_side,
+            "trained prefill")
+    torch.cuda.synchronize()
+    _, err32 = max_err(got32, want32)
+    _, err = max_err(got, want)
+    _, noise = max_err(want, want32)
+    print(f"trained {LM_TRAIN_ARCH} prefill of 2 x {LM_TRAIN_SEQ}: flash "
+          f"launches {prefill_launches}; last-position logits, kernel vs "
+          f"plain attention: f32 rel {err32:.3g} (tol {LM_F32_TOL}), bf16 rel "
+          f"{err:.3g} (tol {LM_BF16_FACTOR} x {noise:.3g}, the plain path's "
+          f"bf16 vs f32) [{card}]")
+    check(prefill_launches == cfg.n_layers == 24,
+          f"{prefill_launches} flash launches in the trained prefill")
+    check(bool(torch.isfinite(got).all()), "non-finite trained logits")
+    check(err32 <= LM_F32_TOL, "trained f32 prefill logits disagree with the "
+          "plain attention")
+    check(err <= LM_BF16_FACTOR * noise, "trained bf16 prefill logits "
+          "disagree with the plain attention")
+    del params, params32, got, got32, want, want32
+
+    # reduced Moonshot: the MoE train mode (expert products as plain
+    # products under autograd)
+    mcfg = get_config(MOE_ARCH).reduced()
+    mstate = train_loop.init_train_state(
+        mcfg, hp, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    mstep = train_loop.make_train_step(mcfg, hp)
+    mds = TokenStream(mcfg.vocab_size, 4, 64, seed=1)
+    zero_kernel_counts()
+    mlosses = []
+    for _ in range(3):
+        mstate, mm = mstep(mstate, next(mds))
+        mlosses.append(float(mm["loss"]))
+    moe_launches = kernel_counts()
+    aux = {k: float(mm[k]) for k in ("moe_lb_loss", "moe_z_loss",
+                                     "moe_dropped")}
+    print(f"{MOE_ARCH} reduced: 3 AdamW steps, loss {mlosses}, aux {aux}, "
+          f"kernel launches {moe_launches} [{card}]")
+    check(all(np.isfinite(mlosses)) and all(np.isfinite(list(aux.values()))),
+          "non-finite MoE training metrics")
+    check(not any(moe_launches.values()), "a MoE train step launched a kernel")
+    del mstate
+    return {"step_ms": med, "step_ms_while_writing": med_writing,
+            "tokens_per_s": tokens / med * 1e3,
+            "bf16_peak_share": share, "peak_gib": peak,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "busy_ms": busy["busy_ms"], "adamw_ms": adamw_ms,
+            "step_launches": step_launches,
+            "prefill_launches": prefill_launches, "checkpoint": ckpt}
 
 
 def greedy_tokens(step, params, cfg, logits, cache) -> torch.Tensor:
@@ -1792,7 +2162,6 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         flash_attention_plain,
     )
     from repro_torch.kernels.flash.ref import FLASH_CASES, FLASH_TOL, random_qkv
-    from repro_torch.kernels.sspnna.sspnna import sspnna_fused
     from repro_torch.models import attention, transformer
     from repro_torch.serving.engine import Engine, Request, make_prefill, make_serve_step
 
@@ -1803,8 +2172,10 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         q, k, v = (x.to(dev) for x in random_qkv(
             rng, b=b, sq=sq, skv=skv, hq=hq, hkv=hkv, d=d, dtype=dt))
         kw = dict(causal=causal, window=window, softcap=cap)
-        got = flash_attention(q, k, v, **kw)
-        want = flash_attention_plain(q, k, v, **kw)
+        got, want = kernel_vs_plain(
+            "flash_fwd", lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_plain(q, k, v, **kw),
+            f"flash B={b} Sq={sq} D={d}")
         torch.cuda.synchronize()
         abs_err, rel_err = max_err(got.float(), want.float())
         print(f"flash B={b} Sq={sq} Skv={skv} H={hq}/{hkv} D={d} "
@@ -1860,11 +2231,11 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         eng.close()
         return out, waves, wall_s, eng
 
-    flash_attention.launches = sspnna_fused.launches = 0
+    zero_kernel_counts()
     by_sync, waves, sync_s, sync_eng = serve(sync=True)
     by_async, async_waves, async_s, _ = serve(sync=False)
     total_launches = flash_attention.launches
-    check(sspnna_fused.launches == 0, "the LM path launched sspnna_fused")
+    check(launched_only("flash_fwd"), "the LM path launched another kernel")
     n_new = sum(len(o) for o in by_sync.values())
     for name, w, s in (("sync", waves, sync_s), ("async", async_waves, async_s)):
         print(f"serve sync={name == 'sync'}: {len(w)} waves, flash launches "
@@ -1891,20 +2262,23 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
     prefill32 = make_prefill(cfg32, cache_pad=MAX_NEW)
     kernel_bshd = attention.flash_attention_bshd
     with torch.inference_mode():
-        for wi, (toks, logits, _) in enumerate(waves):
-            before = flash_attention.launches
+        def plain_side(toks):
+            """bf16 logits, greedy tokens and f32 logits with the plain
+            attention."""
             attention.flash_attention_bshd = flash_attention_plain
             try:
                 want, cache = prefill(params, toks)
                 plain_tokens = greedy(want, cache).tolist()
                 del cache
-                want32 = prefill32(params32, toks)[0]
+                return want, plain_tokens, prefill32(params32, toks)[0]
             finally:
                 attention.flash_attention_bshd = kernel_bshd
+
+        for wi, (toks, logits, _) in enumerate(waves):
+            got32, (want, plain_tokens, want32) = kernel_vs_plain(
+                "flash_fwd", lambda: prefill32(params32, toks)[0],
+                lambda: plain_side(toks), f"wave {wi} prefill")
             torch.cuda.synchronize()
-            check(flash_attention.launches == before,
-                  "the plain prefill launched the kernel")
-            got32 = prefill32(params32, toks)[0]
             check(bool(torch.isfinite(logits).all())
                   and logits.shape == (BATCH, cfg.vocab_padded),
                   "prefill logits not finite or of the wrong shape")
@@ -1948,8 +2322,10 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
     rows = []   # per launch: kernel ms, plain ms, bound ms, bound by
     with torch.inference_mode():
         for i, (q, k, v, kw) in enumerate(calls):
-            got = flash_attention(q, k, v, **kw)
-            want = flash_attention_plain(q, k, v, **kw)
+            got, want = kernel_vs_plain(
+                "flash_fwd", lambda: flash_attention(q, k, v, **kw),
+                lambda: flash_attention_plain(q, k, v, **kw),
+                f"flash launch {i}")
             abs_err, rel_err = max_err(got.float(), want.float())
             check(rel_err <= FLASH_TOL[q.dtype], f"flash launch {i} disagrees")
             worst_abs = max(worst_abs, abs_err)
@@ -2082,7 +2458,6 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         moe_gemm_tol,
         random_moe_inputs,
     )
-    from repro_torch.kernels.sspnna.sspnna import sspnna_fused
     from repro_torch.models import attention, moe, transformer
     from repro_torch.serving.engine import Engine, Request, make_prefill, make_serve_step
 
@@ -2095,8 +2470,10 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     for e, c, d, f, share, dt, odt in MOE_GEMM_CASES:
         xin, w, valid = (x.to(dev) for x in random_moe_inputs(
             rng, e=e, c=c, d=d, f=f, valid_share=share, dtype=dt))
-        got = grouped_gemm(xin, w, valid, out_dtype=odt)
-        want = grouped_gemm_ref(xin, w, valid, odt)
+        got, want = kernel_vs_plain(
+            "moe_gemm", lambda: grouped_gemm(xin, w, valid, out_dtype=odt),
+            lambda: grouped_gemm_ref(xin, w, valid, odt),
+            f"moe_gemm E={e} C={c} d={d} f={f}")
         torch.cuda.synchronize()
         abs_err, rel_err = max_err(got.float(), want.float())
         tol = moe_gemm_tol(dt, odt)
@@ -2174,8 +2551,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             w[3] += st.notes["graph_launches"].get("moe_gemm", 0)
         return out, waves, wall_s, eng
 
-    flash_attention.launches = grouped_gemm.launches = 0
-    sspnna_fused.launches = 0
+    zero_kernel_counts()
     by_sync, waves, sync_s, sync_eng = serve(sync=True)
     by_async, async_waves, async_s, async_eng = serve(sync=False)
     # the counter ticked at each engine's warm-up step and capture; the
@@ -2189,7 +2565,8 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
           f"into the step graphs at capture), {replayed} run by replays: "
           f"{total_launches} launches on the device")
     del async_eng
-    check(sspnna_fused.launches == 0, "the MoE path launched sspnna_fused")
+    check(launched_only("flash_fwd", "moe_gemm"),
+          "the MoE path launched another kernel")
     n_new = sum(len(o) for o in by_sync.values())
     for name, w, sec in (("sync", waves, sync_s),
                          ("async", async_waves, async_s)):
@@ -2258,6 +2635,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
 
     with torch.inference_mode():
         # (a) every launch of one wave's prefill and one decode step
+        before = kernel_counts()["moe_gemm"]
         moe.grouped_gemm = checked("prefill")
         attention.flash_attention_bshd = record_flash
         try:
@@ -2270,7 +2648,8 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             attention.flash_attention_bshd = kernel_bshd
         del logits, cache
         torch.cuda.synchronize()
-        check(len(launch_errs) == 2 * per_prefill,
+        check(len(launch_errs) == 2 * per_prefill
+              == kernel_counts()["moe_gemm"] - before,
               f"{len(launch_errs)} expert-GEMM calls in a prefill and a step")
         worst = max(launch_errs, key=lambda x: x[1] / x[2])
         worst_abs = max([worst_abs] + [x[0] for x in launch_errs])
@@ -2306,7 +2685,8 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
 
             moe.grouped_gemm, moe.build_dispatch = gemm, record
             try:
-                logits = transformer.forward(p, c, toks, last_only=True)[0]
+                logits = transformer.forward(p, c, toks, mode="prefill",
+                                             last_only=True)[0]
             finally:
                 moe.grouped_gemm, moe.build_dispatch = kernel_gemm, dispatch
             return logits[:, -1], routed
@@ -2315,13 +2695,17 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             """Tokens each MoE layer routed to other experts in a than in b."""
             return [int((x != y).any(-1).sum()) for x, y in zip(a, b)]
 
+        def kernel_vs_plain_logits(p, c, toks, what):
+            """last_logits with the kernel's and the plain products."""
+            return kernel_vs_plain(
+                "moe_gemm", lambda: last_logits(p, c, toks, kernel_gemm),
+                lambda: last_logits(p, c, toks, plain_gemm), what)
+
         for wi, (toks, _, _, _) in enumerate(waves):
-            got32, routed32 = last_logits(params_n32, cfg_n32, toks,
-                                          kernel_gemm)
-            want32, plain32 = last_logits(params_n32, cfg_n32, toks,
-                                          plain_gemm)
-            got, routed = last_logits(params_n, cfg_n, toks, kernel_gemm)
-            want, plain = last_logits(params_n, cfg_n, toks, plain_gemm)
+            (got32, routed32), (want32, plain32) = kernel_vs_plain_logits(
+                params_n32, cfg_n32, toks, f"wave {wi} f32")
+            (got, routed), (want, plain) = kernel_vs_plain_logits(
+                params_n, cfg_n, toks, f"wave {wi} bf16")
             torch.cuda.synchronize()
             _, err32 = max_err(got32, want32)
             _, err = max_err(got, want)
@@ -2346,15 +2730,20 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
             # products alone
             x = params["embed"][toks.long()]   # Moonshot's are not scaled
             errs = []
+
+            def layer_out(lp, x, i, gemm):
+                moe.grouped_gemm = gemm
+                try:
+                    return transformer.apply_layer(
+                        lp, x, cfg.layer_kind(i), cfg, "prefill")[0]
+                finally:
+                    moe.grouped_gemm = kernel_gemm
+
             for i, lp in enumerate(params_n["layers"]):
-                outs = []
-                for gemm in (kernel_gemm, plain_gemm):
-                    moe.grouped_gemm = gemm
-                    try:
-                        outs.append(transformer.apply_layer(
-                            lp, x, cfg.layer_kind(i), cfg, "train")[0])
-                    finally:
-                        moe.grouped_gemm = kernel_gemm
+                outs = kernel_vs_plain(
+                    "moe_gemm", lambda: layer_out(lp, x, i, kernel_gemm),
+                    lambda: layer_out(lp, x, i, plain_gemm),
+                    f"wave {wi} layer {i}")
                 errs.append(norm_err(outs[0], outs[1]))
                 x = outs[1]
             print(f"wave {wi}, bf16, the same input to each layer: layer "
@@ -2367,8 +2756,8 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
 
         # (c) full depth in bf16: reported, not gated (no f32 floor fits)
         for wi, (toks, _, _, _) in enumerate(waves):
-            got, routed = last_logits(params, cfg, toks, kernel_gemm)
-            want, plain = last_logits(params, cfg, toks, plain_gemm)
+            (got, routed), (want, plain) = kernel_vs_plain_logits(
+                params, cfg, toks, f"wave {wi} all layers")
             _, err = max_err(got, want)
             first = got[:, :cfg.vocab_size].argmax(-1).tolist()
             plain_first = want[:, :cfg.vocab_size].argmax(-1).tolist()
@@ -2441,8 +2830,10 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         del logits, cache
 
         q, k, v, kw = flash_in[0]
-        f_abs, f_rel = max_err(flash_attention(q, k, v, **kw).float(),
-                               flash_attention_plain(q, k, v, **kw).float())
+        f_abs, f_rel = max_err(*(x.float() for x in kernel_vs_plain(
+            "flash_fwd", lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_plain(q, k, v, **kw),
+            "flash at layer 0 of a Moonshot wave")))
         print(f"flash at layer 0 of a wave vs its plain version: max abs "
               f"{f_abs:.3g} rel {f_rel:.3g} (tol {FLASH_TOL[q.dtype]})")
         check(f_rel <= FLASH_TOL[q.dtype], "flash at layer 0 of a Moonshot "
@@ -2619,6 +3010,7 @@ def main() -> int:
     del spec, scenes, served
     fused_entry["streaming"] = scn_stream_path(dev, phase, seed0["model"],
                                                seed0["cfg"])
+    fused_entry["training"] = scn_training_path(dev, phase, card, seed0)
     del seed0
     torch.cuda.empty_cache()
     results.append(lm_path(dev, phase))
@@ -2638,6 +3030,19 @@ def main() -> int:
     results[1].update(flash_moe)
     results.append(moe_entry)
     results.append(tiles_entry)
+    # the Moonshot engine's weights, as Gemma's above
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    print(f"after the MoE path: {held:.2f} GiB still allocated")
+    check(held < 1.0, "the MoE path's tensors were not freed")
+    training = lm_training_path(dev, phase, card)
+    results[1]["training"] = {
+        "launches": training["prefill_launches"],
+        "train_step_launches": training["step_launches"]["flash_fwd"]}
+    moe_entry["training"] = {
+        "train_step_launches": training["step_launches"]["moe_gemm"]}
+    results[1]["lm_training"] = training
     phase.end()
 
     print(f"card: {card}")

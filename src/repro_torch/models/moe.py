@@ -7,8 +7,12 @@ group routes its tokens top-k over E experts and gathers them into an
 The JAX package computes the three expert products with ``jnp.einsum``;
 each of them is exactly the grouped expert GEMM's function
 (``kernels/moe_gemm``: ``where(valid, x, 0) @ w[e]`` with f32 sums), so the
-port runs them through that kernel, one launch per product with the groups
-folded into the kernel's rows: ``(E, G*cap, d)``.
+port's prefill and decode run them through that kernel, one launch per
+product with the groups folded into the kernel's rows: ``(E, G*cap, d)``.
+The kernel is forward-only, so ``train=True`` (the transformer's
+``mode="train"``) computes the same products as the JAX package does, as
+plain batched products of the masked rows in f32 (bf16 operands widened
+exactly), which autograd differentiates.
 
 As in the JAX package, the gate and up products keep their f32 result
 (the kernel stores f32 there), SwiGLU/GeGLU run in f32, and the down
@@ -52,12 +56,25 @@ def moe_capacity(tokens_per_group: int, top_k: int, n_experts: int,
     return max((cap + round_to - 1) // round_to * round_to, round_to)
 
 
+def _expert_product(xin, w, valid, out_dtype, train: bool):
+    """``where(valid, xin, 0) @ w[e]`` per expert with f32 sums: the
+    kernel, or under ``train`` the JAX package's ``jnp.einsum`` with an f32
+    result as one plain batched product."""
+    if not train:
+        return grouped_gemm(xin, w, valid, out_dtype=out_dtype)
+    x = torch.where(valid[..., None], xin, torch.zeros((), dtype=xin.dtype,
+                                                       device=xin.device))
+    return torch.bmm(x.float(), w.float()).to(out_dtype)
+
+
 def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, capacity: int,
-              act: str, dispatch: str = "gather"):
+              act: str, dispatch: str = "gather", train: bool = False):
     """x: (G, Tg, d) -> (out (G, Tg, d), aux dict).
 
     G = token groups, Tg tokens per group. Each group's dispatch is local
     to it: a token competes for capacity only with its own group's tokens.
+    ``train`` computes the expert products with plain ops under autograd
+    instead of the forward-only kernel.
     """
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"dispatch {dispatch!r} not one of {DISPATCH_MODES}")
@@ -82,17 +99,19 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, capacity: int,
     xin = x.reshape(g * tg, d)[rows.reshape(n_experts, g * capacity)]
 
     # jax.nn.gelu defaults to the tanh approximation
+    def product(xs, w, out_dtype):
+        return _expert_product(xs, w, valid, out_dtype, train)
+
     if act in ("swiglu", "geglu"):
-        a = grouped_gemm(xin, params["w_gate"], valid, out_dtype=torch.float32)
-        b = grouped_gemm(xin, params["w_up"], valid, out_dtype=torch.float32)
+        a = product(xin, params["w_gate"], torch.float32)
+        b = product(xin, params["w_up"], torch.float32)
         inner = (F.silu(a) if act == "swiglu"
                  else F.gelu(a, approximate="tanh")).mul_(b)
         del a, b
     else:
-        inner = F.gelu(grouped_gemm(xin, params["w_up"], valid,
-                                    out_dtype=torch.float32),
+        inner = F.gelu(product(xin, params["w_up"], torch.float32),
                        approximate="tanh")
-    h = grouped_gemm(inner.to(x.dtype), params["w_down"], valid)
+    h = product(inner.to(x.dtype), params["w_down"], x.dtype)
     del inner
 
     # Combine: per assignment j, token t of group g reads row

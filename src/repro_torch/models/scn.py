@@ -5,7 +5,9 @@ transposed convs back up with skip concatenation, and a linear classifier
 over active voxels. ``SCNUNet``'s parameter tree mirrors the JAX package's
 ``init_unet``: ``stem``, ``levels[i].enc/down/up/dec`` and ``head``;
 ``params_from_jax`` carries a JAX parameter tree across, so both packages
-compute the same function. Execution lives in ``repro_torch.engine``.
+compute the same function. Execution lives in ``repro_torch.engine``;
+``segmentation_loss`` is what the trainer minimises, through autograd over
+untiled plans (``reference`` convs), as the JAX package trains.
 """
 from __future__ import annotations
 
@@ -166,6 +168,21 @@ def params_from_jax(tree: dict, cfg: UNetConfig, *,
     put(model.head.w, tree["head"]["w"])
     put(model.head.b, tree["head"]["b"])
     return model
+
+
+def segmentation_loss(logits: torch.Tensor, labels, mask
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross-entropy over active voxels, in f32, and the
+    accuracy there: logits (V, n_classes), labels (V,) ints, mask (V,)
+    bool -> (loss, acc), both 0-dim f32."""
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    m = torch.as_tensor(mask, device=logits.device).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[:, None])[:, 0]
+    n = m.sum().clamp(min=1.0)
+    loss = -(ll * m).sum() / n
+    acc = ((logits.argmax(-1) == labels).float() * m).sum() / n
+    return loss, acc
 
 
 def miou(pred: np.ndarray, labels: np.ndarray, mask: np.ndarray,

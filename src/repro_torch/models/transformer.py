@@ -13,25 +13,45 @@ un-stacks a JAX tree into this list.
 Two modes share one layer: ``forward`` (``mode="train"`` or ``"prefill"``,
 which also emits the per-layer KV cache) and ``decode_step`` (one token
 against the cache). A cache is ``{"layers": [{"k", "v"}, ...], "pos": t}``
-with each layer's ``(B, S_buf, Hkv, D)`` buffers. Prefill routes attention
-through the flash kernel (``models.attention.chunked_attention``), and
-the MoE layers' expert products through the grouped expert GEMM
-(``models.moe``).
+with each layer's ``(B, S_buf, Hkv, D)`` buffers. The mode picks the code:
+
+* ``"prefill"`` and decode serve: prefill attention goes through the flash
+  kernel (``models.attention.chunked_attention``), and the MoE layers'
+  expert products of both through the grouped expert GEMM
+  (``models.moe``). Both kernels are forward-only.
+* ``"train"`` is differentiable, as the JAX package's train mode is: that
+  mode runs no Pallas kernel (its attention is a ``jnp`` loop, its expert
+  products ``jnp.einsum``), and the JAX package has no backward kernel. So
+  the port's train mode runs the same plain ops under autograd
+  (``models.attention.chunked_softmax_attention``, ``apply_moe(train=True)``)
+  and launches no kernel; with ``cfg.remat`` each layer is recomputed in
+  the backward pass (``torch.utils.checkpoint``), as the JAX package
+  wraps its layers in ``jax.checkpoint``.
+
+``lm_loss`` is the next-token cross-entropy the trainer minimises.
 
 RWKV, RG-LRU, encoder-decoder and frontend layers raise
 ``NotImplementedError``: they come with later slices of the port.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import GLOBAL, LOCAL, ModelConfig
 from repro_torch.device import require_device
 from repro_torch.models.attention import (
     cache_update_decode,
     chunked_attention,
+    chunked_softmax_attention,
     decode_attention,
 )
 from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
@@ -172,9 +192,15 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
     else:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q, k, v = _attn_qkv(p, x, cfg, positions)
-        o = chunked_attention(q, k, v, causal=True, window=window,
-                              logit_cap=cfg.attn_softcap,
-                              acc_dtype=cfg.attn_dtype)
+        if mode == "train":  # the JAX train mode's jnp loop, differentiable
+            o = chunked_softmax_attention(
+                q, k, v, causal=True, window=window,
+                logit_cap=cfg.attn_softcap, q_chunk=min(512, s),
+                kv_chunk=min(512, s), acc_dtype=cfg.attn_dtype)
+        else:
+            o = chunked_attention(q, k, v, causal=True, window=window,
+                                  logit_cap=cfg.attn_softcap,
+                                  acc_dtype=cfg.attn_dtype)
         if mode == "prefill":
             if kind == LOCAL and s >= cfg.window:
                 # ring addressing: position p lives at slot p % window
@@ -187,9 +213,10 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
     return o.reshape(b, o.shape[1], -1) @ p["wo"], new_cache
 
 
-def _ffn(p, x, cfg: ModelConfig, moe_groups: int | None):
+def _ffn(p, x, cfg: ModelConfig, moe_groups: int | None, train: bool):
     """Feed-forward -> (y, aux); an MoE layer routes ``b*s`` tokens in
-    ``moe_groups`` groups (default: one group per batch row)."""
+    ``moe_groups`` groups (default: one group per batch row), its expert
+    products on the kernel unless ``train``."""
     if "moe" in p:
         b, s, d = x.shape
         g = moe_groups or b
@@ -197,7 +224,7 @@ def _ffn(p, x, cfg: ModelConfig, moe_groups: int | None):
         cap = moe_capacity((b * s) // g, cfg.moe.top_k, cfg.moe.n_experts,
                            cfg.moe.capacity_factor)
         y, aux = apply_moe(p["moe"], xg, top_k=cfg.moe.top_k, capacity=cap,
-                           act=cfg.act)
+                           act=cfg.act, train=train)
         return y.reshape(b, s, d), aux
     return apply_mlp(p["mlp"], x, cfg.act), {}
 
@@ -211,7 +238,7 @@ def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
                                    cache_pad)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    y, aux = _ffn(p, h, cfg, moe_groups)
+    y, aux = _ffn(p, h, cfg, moe_groups, mode == "train")
     return x + y, new_cache, aux
 
 
@@ -237,6 +264,31 @@ def _logits(params, cfg: ModelConfig, x):
     return logits
 
 
+# what ``remat_policy="dots"`` keeps from the forward pass, as
+# ``jax.checkpoint_policies.checkpoint_dots`` keeps the dot products
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, layer):
+    """``layer`` recomputed in the backward pass (``cfg.remat``): all of it
+    under ``remat_policy="full"``, all but the matmul outputs under
+    ``"dots"``."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r} is not 'full' "
+                         "or 'dots'")
+    return functools.partial(checkpoint, layer, use_reentrant=False, **kw)
+
+
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
             moe_groups: int | None = None, cache_pad: int = 0,
             last_only: bool = False):
@@ -245,7 +297,9 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     ``aux`` sums the MoE layers' auxiliaries (``models.moe.apply_moe``)
     over the layers; it is empty for a dense model. ``last_only`` applies
     the head to the last position only (logits (B, 1, Vp)): what a prefill
-    needs, without the (B, S, Vp) f32 array.
+    needs, without the (B, S, Vp) f32 array. ``mode="train"`` runs plain
+    ops that autograd differentiates (remat per layer under ``cfg.remat``);
+    ``"prefill"`` runs the kernels and emits the cache.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r} is not 'train' or 'prefill'")
@@ -253,9 +307,12 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     x = _embed(params, cfg, tokens)
     caches = []
     aux_sum: dict = {}
+    layer = functools.partial(apply_layer, cache_pad=cache_pad,
+                              moe_groups=moe_groups)
+    if cfg.remat and mode == "train":
+        layer = _remat(cfg, layer)
     for i, lp in enumerate(params["layers"]):
-        x, c, aux = apply_layer(lp, x, cfg.layer_kind(i), cfg, mode,
-                                cache_pad=cache_pad, moe_groups=moe_groups)
+        x, c, aux = layer(lp, x, cfg.layer_kind(i), cfg, mode)
         caches.append(c)
         for k, v in aux.items():
             aux_sum[k] = aux_sum[k] + v if k in aux_sum else v
@@ -302,3 +359,22 @@ def decode_step(params, cfg: ModelConfig, token, cache: dict, *,
                               moe_groups=moe_groups)
         layers.append(c)
     return _logits(params, cfg, x), {"layers": layers, "pos": pos + 1}
+
+
+def lm_loss(logits, targets, cfg: ModelConfig, mask=None):
+    """Next-token cross-entropy over the real vocab: logits (B, S, Vp) f32,
+    targets (B, S) ints, mask (B, S) optional -> the masked mean.
+
+    The JAX package's: a max-shifted logsumexp, the target's logit, and the
+    mean over the mask (at least 1). A gather picks the target's logit
+    where the JAX package contracts with a one-hot (a vocab-sharding
+    choice): the same value without a second (B, S, V) array.
+    """
+    del cfg  # the padded vocab's logits are already -1e30
+    m = logits.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    ll = tgt - lse
+    mask = (torch.ones_like(ll) if mask is None
+            else torch.as_tensor(mask, device=ll.device).float())
+    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)

@@ -46,8 +46,12 @@ from repro_torch.kernels.sspnna.sspnna import (
     sspnna_tiles,
     sspnna_tiles_plain,
 )
+from repro_torch.data.tokens import TokenStream
 from repro_torch.models import common, transformer
-from repro_torch.models.scn import SCNUNet, UNetConfig
+from repro_torch.models.scn import SCNUNet, UNetConfig, segmentation_loss
+from repro_torch.training import checkpoint, train_loop
+from repro_torch.training.optimizer import OptHParams
+from repro_torch.training.tree import tree_leaves_with_path, tree_map
 from repro_torch.sparse.tensor import SparseVoxelTensor, from_dense
 
 K = 27
@@ -445,13 +449,15 @@ def test_f32_prefill_does_not_depend_on_what_ran_before(cuda_device):
         0, cfg.vocab_size, (2, 80))).to(cuda_device)
     params = transformer.init_lm(cfg, device=cuda_device)
     params16 = transformer.init_lm(cfg16, device=cuda_device)
+    launches = flash_attention.launches
     with torch.inference_mode():
         common.rope_table.cache_clear()
-        want = transformer.forward(params, cfg, toks)[0]
+        want = transformer.forward(params, cfg, toks, mode="prefill")[0]
         common.rope_table.cache_clear()
-        transformer.forward(params16, cfg16, toks)
-        got = transformer.forward(params, cfg, toks)[0]
+        transformer.forward(params16, cfg16, toks, mode="prefill")
+        got = transformer.forward(params, cfg, toks, mode="prefill")[0]
     torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 3 * cfg.n_layers
     assert torch.equal(got, want)
 
 
@@ -1073,3 +1079,92 @@ def test_graph_decode_tokens_equal_eager(cuda_device, arch, sync):
                for rid, o in want.items()}
         assert {h.request.rid: h.result().out for h in handles} == cut
         eng.close()
+
+
+def kernel_launches() -> tuple[int, int, int, int]:
+    return (sspnna_fused.launches, sspnna_tiles.launches,
+            flash_attention.launches, grouped_gemm.launches)
+
+
+@pytest.mark.cuda
+def test_scn_train_steps_on_the_card_match_cpu(cuda_device):
+    """Two SGD steps of a reduced SCN on an untiled plan (every conv on
+    ``reference``, as the trainer runs): no kernel launch on the card, and
+    the losses within 1e-4 of the same steps on the CPU."""
+    cfg = UNetConfig(widths=(8, 16), reps=1, resolution=24, capacity=2048,
+                     n_classes=N_CLASSES)
+    coords, feats, labels, mask = make_scene(0, resolution=24, capacity=2048)
+    host = engine.build_scene_plan_host(SparseVoxelTensor(coords, feats, mask),
+                                        cfg, plan_tiles=False)
+    losses = {}
+    for side, dev in (("cpu", torch.device("cpu")), ("card", cuda_device)):
+        model = SCNUNet(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        plan = engine.upload_scene_plan(host, dev)
+        before = kernel_launches()
+        losses[side] = []
+        for _ in range(2):
+            model.zero_grad()
+            loss, _ = segmentation_loss(
+                engine.apply_unet(model, feats, plan, device=dev), labels,
+                mask)
+            loss.backward()
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.sub_(0.3 * p.grad)
+            losses[side].append(loss.item())
+        assert kernel_launches() == before
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "moonshot-v1-16b-a3b"])
+def test_lm_train_steps_on_the_card_match_cpu(cuda_device, arch):
+    """Two AdamW steps of a reduced LM with remat and two microbatches:
+    neither flash nor the expert GEMM launches, and the loss and grad norm
+    are within 1e-4 of the same steps on the CPU."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), remat=True)
+    hp = OptHParams(lr=1e-3)
+    ds = TokenStream(cfg.vocab_size, 4, 32, 3)
+    batches = [next(ds), next(ds)]
+    metrics = {}
+    for side, dev in (("cpu", torch.device("cpu")), ("card", cuda_device)):
+        state = train_loop.init_train_state(
+            cfg, hp, device=dev, generator=torch.Generator().manual_seed(0))
+        step = train_loop.make_train_step(cfg, hp, n_microbatches=2)
+        before = kernel_launches()
+        metrics[side] = []
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics[side].append([float(m["loss"]),
+                                      float(m["grad_norm"])])
+        assert kernel_launches() == before
+        assert int(state["step"]) == 2
+    np.testing.assert_allclose(metrics["card"], metrics["cpu"], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
+    """A bf16 train state on the card, saved asynchronously (snapshot to
+    host, write in a thread) and restored onto the card, bit for bit; a
+    state saved from the CPU restores onto the card equal too."""
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              dtype="bfloat16")
+    hp = OptHParams(moment_dtype=torch.bfloat16)
+    state = train_loop.init_train_state(cfg, hp, device=cuda_device)
+    state, _ = train_loop.make_train_step(cfg, hp)(
+        state, next(TokenStream(cfg.vocab_size, 2, 16, 4)))
+    checkpoint.save_async(state, str(tmp_path / "card"), 1)
+    checkpoint.save(tree_map(lambda t: t.cpu(), state), str(tmp_path / "cpu"),
+                    1)
+    checkpoint.wait_for_saves()
+    for side in ("card", "cpu"):
+        restored, _ = checkpoint.restore(str(tmp_path / side), 1, state,
+                                         device=cuda_device)
+        for (path, x), (_, y) in zip(tree_leaves_with_path(state),
+                                     tree_leaves_with_path(restored),
+                                     strict=True):
+            assert y.device == x.device and y.dtype == x.dtype, path
+            assert torch.equal(x, y), path

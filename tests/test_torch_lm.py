@@ -219,9 +219,10 @@ def test_train_forward_matches_jax_and_last_only(lm):
     want, _, _ = jtransformer.forward(tree, jcfg, jnp.asarray(toks))
     with torch.no_grad():
         got, cache, _ = transformer.forward(params, cfg,
-                                            torch.from_numpy(toks))
+                                            torch.from_numpy(toks),
+                                            mode="train")
         last, _, _ = transformer.forward(params, cfg, torch.from_numpy(toks),
-                                         last_only=True)
+                                         mode="train", last_only=True)
     assert cache is None
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     np.testing.assert_allclose(_np(last), _np(got)[:, -1:], **TOL)
@@ -301,8 +302,8 @@ def test_f32_forward_does_not_depend_on_an_earlier_bf16_one():
     params16 = transformer.init_lm(cfg16, device="cpu")
     with torch.inference_mode():
         common.rope_table.cache_clear()
-        want = transformer.forward(params, cfg, toks)[0]
+        want = transformer.forward(params, cfg, toks, mode="prefill")[0]
         common.rope_table.cache_clear()
-        transformer.forward(params16, cfg16, toks)
-        got = transformer.forward(params, cfg, toks)[0]
+        transformer.forward(params16, cfg16, toks, mode="prefill")
+        got = transformer.forward(params, cfg, toks, mode="prefill")[0]
     assert torch.equal(got, want)

@@ -182,7 +182,8 @@ def test_port_imports_no_jax():
     assert {"repro_torch.serving.engine", "repro_torch.models.transformer",
             "repro_torch.kernels.flash.flash", "repro_torch.engine.context",
             "repro_torch.serving.graphs", "repro_torch.engine.autotune",
-            "repro_torch.serving.scene_engine"} <= set(modules)
+            "repro_torch.serving.scene_engine",
+            "repro_torch.training.train_loop"} <= set(modules)
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {modules!r}]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -198,6 +199,7 @@ def test_port_sources_name_no_jax():
                          re.MULTILINE)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 30
     for f in files:
         assert not pattern.search(f.read_text()), f
