@@ -163,6 +163,28 @@
    bf16's own distance). Reduced Moonshot takes three AdamW steps: finite
    loss, the MoE auxiliaries, no expert-GEMM launch.
 
+20. Serves the configs of slice 10 one after another, each freed before
+   the next ("<arch> init", "serving", "decode graph", "checks",
+   "timing"): Granite-8B, H2O-Danube-3-4B (head dim 120, which the flash
+   wrapper pads to the kernel's 128), RecurrentGemma-9B and RWKV-6-7B at
+   their published widths and depths, and Llama-4 Maverick at its
+   published widths with one layer (128 experts top-1), bf16 with weights
+   drawn on the card: one wave of 2 prompts of 256 tokens and 8 new tokens
+   through ``Engine`` on the decode-step graphs (graph tokens equal eager
+   tokens; the recurrent states advance in place in the graphs' buffers).
+   Prints prefill ms, decode ms a token (graph against eager), the busy
+   share and the peak memory; counts the flash and expert-GEMM launches as
+   ``Graphs`` counts them; holds flash at one attention layer of each
+   config (and of RWKV-6, which has none, checks that nothing launched)
+   and every expert-GEMM launch of Maverick's prefill and decode step
+   against their plain versions, and times them beside their bounds, SDPA
+   (H2O, RecurrentGemma), ``torch.bmm`` (Maverick) and, for D=120, the
+   same launch on pre-padded inputs (the pad's cost).
+21. Trains RecurrentGemma-9B (6 layers) and RWKV-6-7B (8 layers) at their
+   published widths for 2 AdamW steps each in bf16 with remat, and reduced
+   Maverick for 8 Adafactor steps (a held batch's loss must fall); no
+   kernel launches in a step.
+
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
 when no card is present. The line before the last is a JSON object with
@@ -266,6 +288,31 @@ SCN_TRAIN_STEPS, SCN_TRAIN_LR = 30, 0.3
 LM_TRAIN_ARCH, LM_TRAIN_LR = "stablelm-1.6b", 1e-3
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 4, 1024, 2
 LM_TRAIN_STEPS, LM_CKPT_STEP = 10, 5
+# slice 10, parts a and b: the configs served one after another (each
+# freed before the next), at their published widths and depths except
+# Maverick, which serves one of its 48 layers (128 experts x 3 x 5120 x
+# 8192 in bf16 is 32 GB a layer); one wave of BATCH prompts of LM10_PROMPT
+# tokens (a multiple of RWKV's chunk of 64) and LM10_NEW new tokens
+LM10_ARCHS = ("granite-8b", "h2o-danube-3-4b", "llama4-maverick-400b-a17b",
+              "recurrentgemma-9b", "rwkv6-7b")
+LM10_MOE = "llama4-maverick-400b-a17b"
+# (n_layers, d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab, experts,
+# top_k) as published
+LM10_PUBLISHED = {
+    "granite-8b": (36, 4096, 32, 8, 128, 14336, 49152, 0, 1),
+    "h2o-danube-3-4b": (24, 3840, 32, 8, 120, 10240, 32000, 0, 1),
+    "llama4-maverick-400b-a17b": (48, 5120, 40, 8, 128, 8192, 202048, 128,
+                                  1),
+    "recurrentgemma-9b": (38, 4096, 16, 1, 256, 12288, 256000, 0, 1),
+    "rwkv6-7b": (32, 4096, 64, 64, 64, 14336, 65536, 0, 1),
+}
+LM10_LAYERS = {LM10_MOE: 1}
+LM10_PROMPT, LM10_NEW = 256, 8
+# AdamW steps of the recurrent configs at their published widths: the
+# depth one card holds with the functional update's two states (~25 bytes
+# a parameter, as StableLM-2's step measured), batches of 2 x 512 tokens
+LM10_TRAIN = {"recurrentgemma-9b": 6, "rwkv6-7b": 8}
+LM10_TRAIN_BATCH, LM10_TRAIN_SEQ, LM10_TRAIN_STEPS = 2, 512, 2
 
 
 def check(cond: bool, msg: str) -> None:
@@ -447,6 +494,78 @@ def flash_bound(q, k, v, causal, window):
     nbytes = float(q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def flash_row(q, k, v, kw: dict, what: str, reps: int = 5) -> dict:
+    """One flash launch at its real inputs: held against its plain version
+    (within ``FLASH_TOL``), timed with its wrapper (``time_ms``) and on the
+    device alone (``device_ms``), beside the plain version's time and the
+    launch's bound. A head dim between instantiations also times the launch
+    on inputs padded to the next one, so the pad costs the difference.
+    Where no softcap is set and the window masks nothing, SDPA (GQA) computes
+    the same function and is timed as the library's yardstick, which the
+    port never calls; otherwise ``library_ms`` is None."""
+    from repro_torch.kernels.flash.flash import (
+        HEAD_DIMS,
+        flash_attention,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.flash.ref import FLASH_TOL
+
+    def kernel():
+        return flash_attention(q, k, v, **kw)
+
+    got, want = kernel_vs_plain(
+        "flash_fwd", kernel, lambda: flash_attention_plain(q, k, v, **kw), what)
+    abs_err, rel_err = max_err(got.float(), want.float())
+    del want
+    tol = FLASH_TOL[q.dtype]
+    check(rel_err <= tol, f"{what}: flash disagrees with its plain version")
+    causal, window = kw.get("causal", True), kw.get("window")
+    b_ms, b_by = flash_bound(q, k, v, causal, window)
+    row = {"q": list(q.shape), "kv": list(k.shape), "window": window,
+           "max_abs_err": abs_err, "rel_err": rel_err,
+           "ms": time_ms(kernel, reps), "device_ms": device_ms(kernel, 4 * reps),
+           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                               max(2, reps // 2)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    note = ""
+    d = q.shape[-1]
+    kd = next(h for h in HEAD_DIMS if h >= d)
+    if kd != d:
+        qp, kp, vp = (torch.nn.functional.pad(x, (0, kd - d)) for x in (q, k, v))
+        row["padded_ms"] = time_ms(lambda: flash_attention(qp, kp, vp, **kw),
+                                   reps)
+        row["padded_device_ms"] = device_ms(
+            lambda: flash_attention(qp, kp, vp, **kw), 4 * reps)
+        row["pad_ms"] = row["ms"] - row["padded_ms"]
+        row["pad_device_ms"] = row["device_ms"] - row["padded_device_ms"]
+        del qp, kp, vp
+        note += (f"; padded {d} -> {kd}: the launch on padded inputs "
+                 f"{row['padded_ms']:.4f} ms (device "
+                 f"{row['padded_device_ms']:.4f}), so the pad costs "
+                 f"{row['pad_ms']:.4f} ms (device {row['pad_device_ms']:.4f})")
+    if (not kw.get("softcap") and q.shape[1] == k.shape[1]
+            and (window is None or window >= q.shape[1])):
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        row["library_ms"] = time_ms(lib, reps)
+        row["library_device_ms"] = device_ms(lib, 4 * reps)
+        _, row["library_rel_diff"] = max_err(lib().transpose(1, 2).float(),
+                                             got.float())
+        note += (f"; SDPA {row['library_ms']:.4f} ms (device "
+                 f"{row['library_device_ms']:.4f}; rel diff "
+                 f"{row['library_rel_diff']:.3g}; a yardstick the port never "
+                 f"calls)")
+    print(f"{what}: flash q {tuple(q.shape)} kv {tuple(k.shape)} {kw}: kernel "
+          f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, bound {b_ms:.5f} ms ({b_by}), max abs "
+          f"{abs_err:.3g} rel {rel_err:.3g} (tol {tol}){note}")
+    return row
 
 
 def device_times(fn) -> dict[str, float]:
@@ -2080,12 +2199,13 @@ def lm_training_path(dev: torch.device, phase: Phases, card: str) -> dict:
             "prefill_launches": prefill_launches, "checkpoint": ckpt}
 
 
-def greedy_tokens(step, params, cfg, logits, cache) -> torch.Tensor:
-    """MAX_NEW greedy tokens (B, MAX_NEW) from a prefill's output, the decode
+def greedy_tokens(step, params, cfg, logits, cache,
+                  new: int = MAX_NEW) -> torch.Tensor:
+    """``new`` greedy tokens (B, new) from a prefill's output, the decode
     steps run eagerly (``step`` is ``make_serve_step(cfg)``)."""
     tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
     out = [tok]
-    for _ in range(MAX_NEW - 1):
+    for _ in range(new - 1):
         nxt, _, cache = step(params, tok, cache)
         tok = nxt[:, None]
         out.append(tok)
@@ -2109,7 +2229,8 @@ def busy_report(name: str, fn, wall_ms: float, per: int = 1) -> dict:
     return {"busy_ms": busy}
 
 
-def decode_graph(eng, prefill, greedy, toks, arch: str) -> dict:
+def decode_graph(eng, prefill, greedy, toks, arch: str,
+                 new: int = MAX_NEW) -> dict:
     """Decode ms a token and the device's busy share, eager steps (``greedy``)
     against the serving engine's step graphs (``eng.decode``, whose copy of
     the prefill cache into the graphs' cache is counted), on one prefill of
@@ -2119,8 +2240,8 @@ def decode_graph(eng, prefill, greedy, toks, arch: str) -> dict:
     replays queued behind a spinning kernel; an eager decode's thousands of
     launches fill the launch queue, so that measure does not hold for it).
     The timed eager calls decode over a cache an earlier call wrote into:
-    the same work, other tokens."""
-    steps = MAX_NEW - 1
+    the same work, other tokens. ``new`` is the engine's ``max_new``."""
+    steps = new - 1
     with torch.inference_mode():
         logits, cache = prefill(eng.params, toks)
         # the graphs read a copy of the cache; the eager steps write into it
@@ -2319,43 +2440,21 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
     finally:
         attention.flash_attention_bshd = kernel_bshd
     check(len(calls) == cfg.n_layers, f"{len(calls)} flash calls")
-    rows = []   # per launch: kernel ms, plain ms, bound ms, bound by
     with torch.inference_mode():
-        for i, (q, k, v, kw) in enumerate(calls):
-            got, want = kernel_vs_plain(
-                "flash_fwd", lambda: flash_attention(q, k, v, **kw),
-                lambda: flash_attention_plain(q, k, v, **kw),
-                f"flash launch {i}")
-            abs_err, rel_err = max_err(got.float(), want.float())
-            check(rel_err <= FLASH_TOL[q.dtype], f"flash launch {i} disagrees")
-            worst_abs = max(worst_abs, abs_err)
-            ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3)
-            pms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
-            b_ms, b_by = flash_bound(q, k, v, kw["causal"], kw["window"])
-            print(f"flash launch {i} ({cfg.layer_kind(i)}) q {tuple(q.shape)} "
-                  f"kv {tuple(k.shape)} {kw}: kernel {ms:.3f} ms, plain "
-                  f"{pms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), max abs "
-                  f"{abs_err:.3g} rel {rel_err:.3g}")
-            rows.append((ms, pms, b_ms, b_by))
+        rows = [flash_row(q, k, v, kw, f"flash launch {i} "
+                          f"({cfg.layer_kind(i)})", reps=3)
+                for i, (q, k, v, kw) in enumerate(calls)]
+        worst_abs = max([worst_abs] + [r["max_abs_err"] for r in rows])
         # the global layer's inputs without softcap, beside the library call
         glob = next(i for i in range(cfg.n_layers)
                     if cfg.layer_kind(i) != "local")
         q, k, v, _ = calls[glob]
-        nocap_ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 5)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=True), 5)
-        _, lib_err = max_err(
-            sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(
-                1, 2).float(), flash_attention(q, k, v, causal=True).float())
-        print(f"layer {glob} inputs without softcap: kernel {nocap_ms:.3f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.3f} ms (rel diff "
-              f"{lib_err:.3g}; a yardstick the port never calls)")
-        wave_ms = sum(r[0] for r in rows)
+        nocap = flash_row(q, k, v, {"causal": True},
+                          f"layer {glob} inputs without softcap")
+        wave_ms = sum(r["ms"] for r in rows)
         print(f"one wave's prefill: {len(rows)} flash launches, kernel "
-              f"{wave_ms:.3f} ms, plain {sum(r[1] for r in rows):.3f} ms, bound "
-              f"{sum(r[2] for r in rows):.4f} ms")
+              f"{wave_ms:.3f} ms, plain {sum(r['plain_ms'] for r in rows):.3f} "
+              f"ms, bound {sum(r['bound_ms'] for r in rows):.4f} ms")
 
         prefill_ms = host_ms(lambda: prefill(params, toks0), 3)
         decode_ms = []
@@ -2374,7 +2473,7 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
     phase("decode graph")
     graph_decode = decode_graph(sync_eng, prefill, greedy, toks0, LM_ARCH)
     del sync_eng
-    ms, pms, b_ms, b_by = rows[glob]
+    row = rows[glob]
     return {
         "name": "flash_fwd",
         "route": "cuda",
@@ -2385,16 +2484,19 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
         # one global-layer launch of a wave's prefill (B=2, S=6144, 8/4
         # heads of 256, causal, softcap 50); library_ms is SDPA on the same
         # inputs without softcap, beside the kernel's ms_no_softcap
-        "ms": ms,
-        "plain_ms": pms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": lib_ms,
-        "ms_no_softcap": nocap_ms,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": nocap["library_ms"],
+        "device_ms": row["device_ms"],
+        "ms_no_softcap": nocap["ms"],
+        "device_ms_no_softcap": nocap["device_ms"],
+        "library_device_ms": nocap["library_device_ms"],
         # summed over the 26 launches of one wave's prefill
         "wave_ms": wave_ms,
-        "wave_plain_ms": sum(r[1] for r in rows),
-        "wave_bound_ms": sum(r[2] for r in rows),
+        "wave_plain_ms": sum(r["plain_ms"] for r in rows),
+        "wave_bound_ms": sum(r["bound_ms"] for r in rows),
         # Gemma-2's decode per token, eager steps against the step graphs
         "decode": graph_decode,
     }
@@ -2415,6 +2517,40 @@ def moe_gemm_bound(xin, w, valid, out_dtype):
                    + valid.numel() + e * c * f * out_size)
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def gemm_row(xin, w, valid, out_dtype, what: str, reps: int = 5) -> dict:
+    """One expert-GEMM launch at its real inputs, timed with its wrapper
+    (``time_ms``) and on the device alone (``device_ms``), beside the plain
+    version's time, ``torch.bmm`` on the pre-masked inputs (the library's
+    yardstick, bf16 out, which the port never calls) and the launch's
+    bound."""
+    from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
+    def kernel():
+        return grouped_gemm(xin, w, valid, out_dtype=out_dtype)
+
+    xm = torch.where(valid[..., None], xin, 0)
+    b_ms, b_by = moe_gemm_bound(xin, w, valid, out_dtype)
+    row = {"x": list(xin.shape), "w": list(w.shape),
+           "valid_rows": int(valid.sum()),
+           "live_experts": int(valid.any(1).sum()),
+           "ms": time_ms(kernel, reps), "device_ms": device_ms(kernel, 4 * reps),
+           "plain_ms": time_ms(lambda: grouped_gemm_ref(xin, w, valid,
+                                                        out_dtype),
+                               max(2, reps // 2)),
+           "library_ms": time_ms(lambda: torch.bmm(xm, w), reps),
+           "library_device_ms": device_ms(lambda: torch.bmm(xm, w), 4 * reps),
+           "bound_ms": b_ms, "bound_by": b_by}
+    del xm
+    print(f"{what}: moe_gemm x {tuple(xin.shape)} w {tuple(w.shape)}, "
+          f"{row['valid_rows']} valid rows in {row['live_experts']} experts: "
+          f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+          f"{row['plain_ms']:.4f} ms, torch.bmm {row['library_ms']:.4f} ms "
+          f"(device {row['library_device_ms']:.4f}; a yardstick the port "
+          f"never calls), bound {b_ms:.4f} ms ({b_by})")
+    return row
 
 
 # the expert GEMM's kernel instantiations: the bf16 wgmma tiles (f32 or
@@ -2446,11 +2582,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     path's shape."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.kernels.flash.flash import (
-        flash_attention,
-        flash_attention_plain,
-    )
-    from repro_torch.kernels.flash.ref import FLASH_TOL
+    from repro_torch.kernels.flash.flash import flash_attention
     from repro_torch.kernels.moe_gemm.moe_gemm import grouped_gemm
     from repro_torch.kernels.moe_gemm.ref import (
         MOE_GEMM_CASES,
@@ -2771,29 +2903,13 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         del got, want, routed, plain
 
     phase("MoE timing")
-    # (where, d) -> (kernel ms, plain ms, bmm ms, bound ms, bound by, kernel
-    # device ms, bmm device ms)
-    rows = {}
+    rows = {}   # (where, d) -> gemm_row
     with torch.inference_mode():
         for (where, d, odt), (xin, w, valid, _) in sorted(
                 timed.items(), key=lambda kv: (kv[0][0] != "prefill", -kv[0][1])):
-            name = (f"{where} d={d}->f={w.shape[2]} "
-                    f"{str(odt).removeprefix('torch.')}")
-            ms = time_ms(lambda: kernel_gemm(xin, w, valid, out_dtype=odt), 5)
-            dms = device_ms(
-                lambda: kernel_gemm(xin, w, valid, out_dtype=odt), 20)
-            pms = time_ms(lambda: grouped_gemm_ref(xin, w, valid, odt), 3)
-            xm = torch.where(valid[..., None], xin, 0)
-            lib_ms = time_ms(lambda: torch.bmm(xm, w), 5)
-            lib_dms = device_ms(lambda: torch.bmm(xm, w), 20)
-            b_ms, b_by = moe_gemm_bound(xin, w, valid, odt)
-            print(f"moe_gemm {name}: x {tuple(xin.shape)}, valid rows "
-                  f"{int(valid.sum())}, experts with a valid row "
-                  f"{int(valid.any(1).sum())}: kernel {ms:.4f} ms (device "
-                  f"{dms:.4f}), plain {pms:.4f} ms, torch.bmm {lib_ms:.4f} "
-                  f"ms (device {lib_dms:.4f}; bf16 out; a yardstick the port "
-                  f"never calls), bound {b_ms:.4f} ms ({b_by})")
-            rows[where, d] = (ms, pms, lib_ms, b_ms, b_by, dms, lib_dms)
+            rows[where, d] = gemm_row(
+                xin, w, valid, odt, f"{where} d={d}->f={w.shape[2]} "
+                f"{str(odt).removeprefix('torch.')}")
         # the device time of every expert-GEMM and flash launch of one
         # prefill and one decode step, in place (CUDA events around each)
         spans = []
@@ -2830,23 +2946,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         del logits, cache
 
         q, k, v, kw = flash_in[0]
-        f_abs, f_rel = max_err(*(x.float() for x in kernel_vs_plain(
-            "flash_fwd", lambda: flash_attention(q, k, v, **kw),
-            lambda: flash_attention_plain(q, k, v, **kw),
-            "flash at layer 0 of a Moonshot wave")))
-        print(f"flash at layer 0 of a wave vs its plain version: max abs "
-              f"{f_abs:.3g} rel {f_rel:.3g} (tol {FLASH_TOL[q.dtype]})")
-        check(f_rel <= FLASH_TOL[q.dtype], "flash at layer 0 of a Moonshot "
-              "wave disagrees with its plain version")
-        f_ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3)
-        f_pms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), 2)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        f_lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 5)
-        f_bound, _ = flash_bound(q, k, v, kw["causal"], kw["window"])
-        print(f"flash at layer 0 of a wave, q {tuple(q.shape)} {kw}: kernel "
-              f"{f_ms:.3f} ms, plain {f_pms:.3f} ms, SDPA {f_lib:.3f} ms (a "
-              f"yardstick the port never calls), bound {f_bound:.4f} ms")
+        frow = flash_row(q, k, v, kw, "flash at layer 0 of a Moonshot wave")
 
         prefill_ms = host_ms(lambda: prefill(params, toks0), 3)
         decode_ms = []
@@ -2890,7 +2990,7 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
           f"expert GEMM {step_ms:.3f} ms (bound {step_bound:.4f} ms; "
           f"{BATCH} sequences, {1e3 * BATCH / decode_ms[-1]:.1f} tokens/s); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    ms, pms, lib_ms, b_ms, b_by, dms, lib_dms = rows["prefill", cfg.d_model]
+    row = rows["prefill", cfg.d_model]
     entry = {
         "name": "moe_gemm",
         "route": "cuda",
@@ -2900,18 +3000,15 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         "max_abs_err": worst_abs,
         # one prefill gate launch of a wave (layer 0: x (64, 968, 2048)
         # bf16, f32 out); library_ms is torch.bmm on the pre-masked inputs
-        "ms": ms,
-        "plain_ms": pms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": lib_ms,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
         # the same launch on the device (chip_smoke.device_ms)
-        "device_ms": dms,
-        "library_device_ms": lib_dms,
-        "shapes": {f"{w_} d={d}": dict(zip(
-            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "device_ms", "library_device_ms"), r))
-            for (w_, d), r in rows.items()},
+        "device_ms": row["device_ms"],
+        "library_device_ms": row["library_device_ms"],
+        "shapes": {f"{w_} d={d}": r for (w_, d), r in rows.items()},
         # summed over the launches of one wave's prefill and of one decode
         # step, timed in place
         "wave_prefill_ms": wave_ms,
@@ -2921,9 +3018,295 @@ def moe_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
         # Moonshot's decode per token, eager steps against the step graphs
         "decode": graph_decode,
     }
-    flash = {"moe_ms": f_ms, "moe_plain_ms": f_pms, "moe_library_ms": f_lib,
-             "moe_bound_ms": f_bound, "moe_max_abs_err": f_abs}
+    flash = {f"moe_{k}": frow[k] for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+        "bound_ms", "max_abs_err")}
     return entry, flash
+
+
+def lm_config_path(dev: torch.device, phase: Phases, arch: str,
+                   card: str) -> dict:
+    """Phase "<arch> serving" of slice 10: one config at its published
+    widths (depth cut only where ``LM10_LAYERS`` says), seeded on the card,
+    serving one wave of ``BATCH`` prompts of ``LM10_PROMPT`` tokens through
+    ``Engine`` with ``LM10_NEW`` new tokens on the decode-step graphs. The
+    flash and expert-GEMM launches are counted as ``Graphs`` counts them
+    (the counters' ticks, less those recorded at capture, plus the
+    replays'), one attention layer's flash launch and every expert-GEMM
+    launch of a prefill and a decode step are held against their plain
+    versions, and prefill, decode (graph against eager) and the kernels
+    are timed. Returns the numbers for the JSON."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, moe_gemm_tol
+    from repro_torch.models import attention, moe, transformer
+    from repro_torch.serving.engine import Engine, Request, make_prefill, make_serve_step
+
+    phase(f"{arch} init")
+    cfg = get_config(arch)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.moe.n_experts,
+           cfg.moe.top_k) == LM10_PUBLISHED[arch],
+          f"{arch} is not at its published widths")
+    check(cfg.torch_dtype == torch.bfloat16, f"{arch} runs in bf16")
+    if arch in LM10_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=LM10_LAYERS[arch])
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    n_attn = sum(k in ("global", "local") for k in kinds)
+    per_prefill = 3 * cfg.n_layers if cfg.is_moe else 0
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_lm(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    tokens = next(TokenStream(cfg.vocab_size, BATCH, LM10_PROMPT,
+                              seed=0))["tokens"]
+    prompts = [tokens[i, :LM10_PROMPT] for i in range(BATCH)]
+    print(f"{arch}: {n_params / 1e9:.4f} B parameters in bf16, "
+          f"{cfg.n_layers} layers{' (depth cut)' if arch in LM10_LAYERS else ''}"
+          f", kinds {sorted(set(kinds))}, head dim {cfg.head_dim}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
+          f"batch {BATCH}, prompts of {LM10_PROMPT}, {LM10_NEW} new tokens")
+
+    phase(f"{arch} serving")
+    zero_kernel_counts()
+    eng = Engine(cfg, params, BATCH, LM10_PROMPT, LM10_NEW, device=dev)
+    waves = []   # (tokens, logits, flash launches, expert-GEMM launches)
+    inner = eng.prefill
+
+    def prefill_counted(p, toks):
+        before = kernel_counts()
+        logits, cache = inner(p, toks)
+        after = kernel_counts()
+        waves.append((toks, logits, after["flash_fwd"] - before["flash_fwd"],
+                      after["moe_gemm"] - before["moe_gemm"]))
+        return logits, cache
+
+    eng.prefill = prefill_counted
+    handles = eng.submit([Request(i, p, max_new=LM10_NEW)
+                          for i, p in enumerate(prompts)])
+    t0 = time.perf_counter()
+    eng.serve()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    served = {h.request.rid: h.result().out for h in handles}
+    eng.close()
+    counts = kernel_counts()
+    launches = {k: counts[k] - eng.graphs.captured[k] + eng.graphs.replayed[k]
+                for k in ("flash_fwd", "moe_gemm")}
+    check(launched_only("flash_fwd", "moe_gemm"),
+          f"the {arch} path launched another kernel")
+    check(len(waves) == 1 and waves[0][2] == n_attn,
+          f"{arch}: the prefill launched flash {waves[0][2]} times, not once "
+          f"an attention layer ({n_attn})")
+    check(waves[0][3] == per_prefill,
+          f"{arch}: the prefill launched the expert GEMM {waves[0][3]} times")
+    graph_gemm = eng.wave_stats[0].notes["graph_launches"].get("moe_gemm", 0)
+    check(graph_gemm == per_prefill * (LM10_NEW - 1),
+          f"{arch}: the step graphs ran {graph_gemm} expert-GEMM launches")
+    check(len(eng.graphs) == LM10_NEW - 1, f"{len(eng.graphs)} step graphs")
+    _, logits0, _, _ = waves[0]
+    check(bool(torch.isfinite(logits0).all())
+          and logits0.shape == (BATCH, cfg.vocab_padded),
+          f"{arch}: prefill logits not finite or of the wrong shape")
+    check(all(len(o) == LM10_NEW and all(0 <= t < cfg.vocab_size for t in o)
+              for o in served.values()), f"{arch}: tokens out of range")
+    print(f"{arch} serve: {serve_s:.3f} s for one wave; launches on the "
+          f"device {launches} (flash {waves[0][2]} in the prefill; the "
+          f"expert GEMM {waves[0][3]} in the prefill, {graph_gemm} by the "
+          f"{LM10_NEW - 1} step graphs' replays); tokens {served}")
+
+    phase(f"{arch} decode graph")
+    prefill = make_prefill(cfg, cache_pad=LM10_NEW)
+    step = make_serve_step(cfg)
+    toks0 = waves[0][0]
+
+    def greedy(logits, cache):
+        return greedy_tokens(step, params, cfg, logits, cache, LM10_NEW)
+
+    decode = decode_graph(eng, prefill, greedy, toks0, arch, LM10_NEW)
+    del eng
+    gc.collect()
+
+    phase(f"{arch} checks")
+    out = {"params": n_params, "layers": cfg.n_layers, "serve_s": serve_s,
+           "launches": launches, "decode": decode}
+    kernel_bshd, kernel_gemm = attention.flash_attention_bshd, moe.grouped_gemm
+    flash_in, gemm_in = [], []
+
+    def record_flash(q, k, v, **kw):
+        flash_in.append((q, k, v, kw))
+        return kernel_bshd(q, k, v, **kw)
+
+    def record_gemm(where):
+        def run(xin, w, valid, *, out_dtype=None):
+            got = kernel_gemm(xin, w, valid, out_dtype=out_dtype)
+            gemm_in.append((where, xin, w, valid, got.dtype))
+            return got
+        return run
+
+    with torch.inference_mode():
+        attention.flash_attention_bshd = record_flash
+        moe.grouped_gemm = record_gemm("prefill")
+        try:
+            logits, cache = prefill(params, toks0)
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+            moe.grouped_gemm = record_gemm("decode")
+            step(params, tok, cache)
+        finally:
+            attention.flash_attention_bshd = kernel_bshd
+            moe.grouped_gemm = kernel_gemm
+        del logits, cache
+        check(len(flash_in) == n_attn and len(gemm_in) == 2 * per_prefill,
+              f"{arch}: recorded {len(flash_in)} flash and {len(gemm_in)} "
+              "expert-GEMM calls")
+        if flash_in:
+            q, k, v, kw = flash_in[0]
+            out["flash"] = flash_row(
+                q, k, v, kw, f"{arch}, first attention layer [{card}]")
+        flash_in.clear()
+        if gemm_in:
+            errs, rows = [], {}
+            for where, xin, w, valid, odt in gemm_in:
+                got, want = kernel_vs_plain(
+                    "moe_gemm", lambda: kernel_gemm(xin, w, valid,
+                                                    out_dtype=odt),
+                    lambda: grouped_gemm_ref(xin, w, valid, odt),
+                    f"{arch} expert GEMM ({where})")
+                abs_err, rel_err = max_err(got.float(), want.float())
+                errs.append((abs_err, rel_err, moe_gemm_tol(xin.dtype,
+                                                            got.dtype)))
+                del got, want
+            print(f"{arch}: every expert-GEMM launch of one prefill and one "
+                  f"decode step ({len(errs)}) vs its plain version: rel "
+                  f"{', '.join(f'{e[1]:.3g}' for e in errs)} (tol "
+                  f"{errs[0][2]}), max abs {max(e[0] for e in errs):.3g}")
+            check(all(rel <= tol for _, rel, tol in errs),
+                  f"an expert-GEMM launch of {arch} disagrees")
+            for where, xin, w, valid, odt in (gemm_in[0],
+                                              gemm_in[per_prefill]):
+                rows[where] = gemm_row(xin, w, valid, odt,
+                                       f"{arch} {where} gate [{card}]")
+            out["moe_gemm"] = dict(rows, max_abs_err=max(e[0] for e in errs))
+        gemm_in.clear()
+
+        phase(f"{arch} timing")
+        prefill_ms = host_ms(lambda: prefill(params, toks0), 3)
+        busy = busy_report(f"{arch} prefill", lambda: prefill(params, toks0),
+                           prefill_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch}: prefill {prefill_ms:.3f} ms a wave of {BATCH} x "
+          f"{LM10_PROMPT}; decode {decode['graph']['ms']:.3f} ms a token as "
+          f"step graphs, {decode['eager']['ms']:.3f} eager; peak memory "
+          f"{peak:.2f} GiB [{card}]")
+    out.update(prefill_ms=prefill_ms, prefill_busy_ms=busy["busy_ms"],
+               peak_gib=peak)
+    return out
+
+
+def recurrent_training_path(dev: torch.device, phase: Phases,
+                            card: str) -> dict:
+    """Phases "<arch> training" and "Maverick Adafactor": AdamW steps of
+    RecurrentGemma-9B and RWKV-6-7B at their published widths, at the
+    depth one card holds with the functional update's two states
+    (``LM10_TRAIN``), in bf16 with remat (the backward through the
+    log-depth RG-LRU scan and ``chunked_wkv``); then the twin of
+    ``tests/test_training.py::test_adafactor_trains_moe``: reduced Maverick,
+    Adafactor, 8 steps, a held batch's loss falling. No kernel launches in
+    a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import OptHParams
+
+    out = {}
+    hp = OptHParams(lr=LM_TRAIN_LR, moment_dtype=torch.float32)
+    for arch, depth in LM10_TRAIN.items():
+        phase(f"{arch} training")
+        cfg = get_config(arch)
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.moe.n_experts,
+               cfg.moe.top_k) == LM10_PUBLISHED[arch],
+              f"{arch} is not at its published widths")
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+        check(cfg.torch_dtype == torch.bfloat16 and cfg.remat,
+              f"{arch} trains in bf16 with remat")
+        torch.cuda.reset_peak_memory_stats()
+        state = train_loop.init_train_state(
+            cfg, hp, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in leaves(state["params"]))
+        step_fn = train_loop.make_train_step(cfg, hp)
+        ds = TokenStream(cfg.vocab_size, LM10_TRAIN_BATCH, LM10_TRAIN_SEQ,
+                         seed=0)
+        zero_kernel_counts()
+        losses, step_ms = [], []
+        for _ in range(LM10_TRAIN_STEPS):
+            batch = next(ds)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = kernel_counts()
+        tokens = LM10_TRAIN_BATCH * LM10_TRAIN_SEQ
+        print(f"{arch} training: {n_params / 1e9:.4f} B parameters ({depth} "
+              f"of {get_config(arch).n_layers} layers), AdamW steps of "
+              f"{LM10_TRAIN_BATCH} x {LM10_TRAIN_SEQ} tokens: "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)} ms "
+              f"({tokens / step_ms[-1] * 1e3:.1f} tokens/s at the last); "
+              f"peak memory {peak:.2f} GiB; loss "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; kernel launches "
+              f"{launched} [{card}]")
+        check(all(np.isfinite(losses)), f"{arch}: a non-finite loss")
+        check(not any(launched.values()), f"an {arch} train step launched a "
+              "kernel")
+        out[arch] = {"layers": depth, "params": n_params, "step_ms": step_ms,
+                     "peak_gib": peak, "losses": losses}
+        del state, m, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phase("Maverick Adafactor")
+    mcfg = get_config(LM10_MOE).reduced()
+    check(mcfg.optimizer == "adafactor", "Maverick trains with Adafactor")
+    mhp = OptHParams(lr=1e-3)
+    mstate = train_loop.init_train_state(
+        mcfg, mhp, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    mstep = train_loop.make_train_step(mcfg, mhp)
+    mds = TokenStream(mcfg.vocab_size, 4, 32, 1)
+    # each step's loss is on a fresh batch, which moves it by ~0.1 at this
+    # size (as much as 8 steps at lr 1e-3 gain): the loss that must fall is
+    # that of one held batch, before and after the steps
+    held = next(TokenStream(mcfg.vocab_size, 16, 32, 99))
+    loss_fn = train_loop.make_loss_fn(mcfg)
+
+    def held_loss():
+        with torch.no_grad():
+            return float(loss_fn(mstate["params"], held)[1]["loss"])
+
+    zero_kernel_counts()
+    before = held_loss()
+    mlosses = []
+    for _ in range(8):
+        mstate, mm = mstep(mstate, next(mds))
+        mlosses.append(float(mm["loss"]))
+    after = held_loss()
+    launched = kernel_counts()
+    print(f"{LM10_MOE} reduced, Adafactor: 8 steps, loss "
+          f"{', '.join(f'{x:.4f}' for x in mlosses)}; a held batch's loss "
+          f"{before:.4f} -> {after:.4f}; kernel launches {launched} [{card}]")
+    check(all(np.isfinite(mlosses)), "a non-finite Maverick loss")
+    check(after < before, "the Maverick Adafactor loss did not fall")
+    check(not any(launched.values()), "a Maverick train step launched a "
+          "kernel")
+    out["maverick_adafactor"] = {"losses": mlosses, "held_before": before,
+                                 "held_after": after}
+    del mstate
+    return out
 
 
 def main() -> int:
@@ -3036,6 +3419,26 @@ def main() -> int:
     held = torch.cuda.memory_allocated() / 2**30
     print(f"after the MoE path: {held:.2f} GiB still allocated")
     check(held < 1.0, "the MoE path's tensors were not freed")
+    # slice 10: each config serves alone, its weights freed after it
+    lm10 = {}
+    for arch in LM10_ARCHS:
+        lm10[arch] = lm_config_path(dev, phase, arch, card)
+        # the engine's stage callbacks hold it (and the weights) in a cycle
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2**30
+        print(f"after the {arch} path: {held:.2f} GiB still allocated")
+        check(held < 1.0, f"the {arch} path's tensors were not freed")
+    results[1]["lm_configs"] = {
+        arch: dict(r["flash"], launches=r["launches"]["flash_fwd"],
+                   prefill_ms=r["prefill_ms"], decode=r["decode"])
+        for arch, r in lm10.items() if "flash" in r}
+    moe_entry["maverick"] = dict(
+        lm10[LM10_MOE]["moe_gemm"],
+        launches=lm10[LM10_MOE]["launches"]["moe_gemm"])
+    recurrent = {arch: {k: lm10[arch][k] for k in (
+        "launches", "prefill_ms", "prefill_busy_ms", "decode", "peak_gib")}
+        for arch in ("recurrentgemma-9b", "rwkv6-7b")}
     training = lm_training_path(dev, phase, card)
     results[1]["training"] = {
         "launches": training["prefill_launches"],
@@ -3043,6 +3446,8 @@ def main() -> int:
     moe_entry["training"] = {
         "train_step_launches": training["step_launches"]["moe_gemm"]}
     results[1]["lm_training"] = training
+    recurrent["training"] = recurrent_training_path(dev, phase, card)
+    results[1]["recurrent"] = recurrent
     phase.end()
 
     print(f"card: {card}")

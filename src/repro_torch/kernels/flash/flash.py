@@ -14,6 +14,13 @@ masked row gives 0. ``flash_attention_plain`` computes the same function
 with plain PyTorch ops (``attention_ref`` semantics in f32, with the
 kernel's zero for fully masked rows); the wrapper uses it only for tensors
 that lie on the CPU.
+
+The kernel is instantiated at the head dims of ``HEAD_DIMS``. A head dim
+between them (H2O-Danube-3's 120) is zero-padded inside the wrapper to
+the next one, and the kernel gets the real dim's scale: zero columns add
+nothing to q k^T, and zero columns of v give outputs that are sliced
+away, so the launch computes the kernel's function at the real head dim.
+The CPU path takes any head dim, as the JAX package's attention does.
 """
 from __future__ import annotations
 
@@ -51,8 +58,6 @@ def _check(q, k, v, window, softcap):
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} (Hq must be a multiple of Hkv)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -96,7 +101,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Attention forward -> (B, Sq, Hq, D) in q's dtype.
 
     q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D) with Hq a multiple of Hkv;
-    float32 or bfloat16; D in ``HEAD_DIMS``. Query row i sits at position
+    float32 or bfloat16; on the card D at most ``HEAD_DIMS[-1]`` (a D
+    between instantiations is padded, see the module docstring). Query
+    row i sits at position
     ``Skv - Sq + i``; ``window`` keeps keys with ``k_pos > q_pos - window``;
     ``softcap`` applies ``cap * tanh(s / cap)`` to the scaled scores.
 
@@ -116,20 +123,26 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError("flash_attention needs 16-byte aligned q, k and v")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    kd = next((h for h in HEAD_DIMS if h >= d), None)
+    if kd is None:
+        raise ValueError(f"head dim {d} is larger than the kernel's largest, "
+                         f"{HEAD_DIMS[-1]}")
+    if kd != d:   # zero columns: the kernel's function at the real d
+        q, k, v = (torch.nn.functional.pad(x, (0, kd - d)) for x in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
-        return out
+        return out[..., :d]
     fn = _library().flash_fwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, sq, skv, hq, hkv, d, int(causal),
+                 _DTYPE_CODE[q.dtype], b, sq, skv, hq, hkv, kd, int(causal),
                  window or 0, softcap or 0.0, 1.0 / d ** 0.5, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return out
+    return out if kd == d else out[..., :d].contiguous()
 
 
 flash_attention.launches = 0

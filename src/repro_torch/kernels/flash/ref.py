@@ -16,7 +16,9 @@ NEG_INF = -1e30
 # The rest are the edges of the bf16 tensor-core kernel: D=256 over many
 # tiles with a softcap, a ragged Sq=129 (one row past a 128-row block), a
 # window shorter than a tile with GQA group 2, sq > skv, and D=32 (its
-# 64-byte swizzle).
+# 64-byte swizzle). The last two take head dims the kernel is not built
+# for, which the wrapper pads: H2O-Danube-3's D=120 (bf16, a window, GQA
+# group 4) and D=96 (f32, a softcap).
 FLASH_CASES = [
     (2, 200, 200, 4, 4, 64, True, None, None, torch.float32),
     (1, 130, 333, 4, 2, 128, True, None, 50.0, torch.float32),
@@ -32,6 +34,8 @@ FLASH_CASES = [
     (1, 200, 200, 4, 2, 64, True, 20, None, torch.bfloat16),
     (1, 150, 100, 2, 1, 128, True, None, None, torch.bfloat16),
     (2, 100, 100, 2, 1, 32, True, None, 30.0, torch.bfloat16),
+    (2, 200, 200, 8, 2, 120, True, 64, None, torch.bfloat16),
+    (1, 150, 150, 4, 4, 96, True, None, 30.0, torch.float32),
 ]
 # kernel vs plain version, max |got - want| / max(|want|, 1): f32 sums of D
 # products and of a row's p*v terms in another order than the plain

@@ -1,5 +1,5 @@
-"""Feed-forward blocks: SwiGLU, GeGLU and GELU-MLP (port of
-``repro.models.mlp``; the RWKV channel-mix comes with the RWKV slice).
+"""Feed-forward blocks: SwiGLU, GeGLU and GELU-MLP, and the RWKV channel
+mix (port of ``repro.models.mlp``).
 
 ``jax.nn.gelu`` defaults to the tanh approximation, so GeGLU and GELU use
 ``F.gelu(..., approximate="tanh")``.
@@ -22,6 +22,11 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, act: str,
                 "w_down": w((d_ff, d_model))}
     if act == "gelu":
         return {"w_up": w((d_model, d_ff)), "w_down": w((d_ff, d_model))}
+    if act == "rwkv_cm":
+        return {"w_k": w((d_model, d_ff)), "w_v": w((d_ff, d_model)),
+                "w_r": w((d_model, d_model)),
+                "mu_k": torch.zeros((d_model,), dtype=dtype, device=device),
+                "mu_r": torch.zeros((d_model,), dtype=dtype, device=device)}
     raise ValueError(act)
 
 
@@ -35,3 +40,13 @@ def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "gelu":
         return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
     raise ValueError(act)
+
+
+def apply_rwkv_channel_mix(params: dict, x: torch.Tensor,
+                           x_prev: torch.Tensor) -> torch.Tensor:
+    """RWKV channel mix with token shift. x, x_prev: (B, S, d), x_prev being
+    x shifted right by one (x_{t-1})."""
+    xk = x + (x_prev - x) * params["mu_k"]
+    xr = x + (x_prev - x) * params["mu_r"]
+    k = torch.square(F.relu(xk @ params["w_k"]))
+    return torch.sigmoid(xr @ params["w_r"]) * (k @ params["w_v"])

@@ -1,24 +1,37 @@
 """Decoder LM: prefill/train forward and cached decode (port of
-``repro.models.transformer``, ``GLOBAL`` and ``LOCAL`` attention layers,
-dense or MoE feed-forward).
+``repro.models.transformer``: ``GLOBAL`` and ``LOCAL`` attention layers
+with a dense or MoE feed-forward, ``RWKV`` layers (time mix and channel
+mix, ``models.rwkv6``) and ``RGLRU`` layers (the recurrent block and an
+MLP, ``models.rglru``).
 
 Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
-``lm_head`` (untied configs only) and ``layers``, one dict per layer
-(``ln1``, ``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``ln2``, and ``mlp``
-or, every ``moe_layer_period``-th layer of an MoE config, ``moe``).
-The JAX package stacks layers per cycle of ``attn_pattern`` and scans
-them; the port loops over layers in Python, and ``params_from_jax``
-un-stacks a JAX tree into this list.
+``lm_head`` (untied configs only) and ``layers``, one dict per layer:
+``ln1``, the mixer (``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``tm`` or
+``rec``), ``ln2``, and the feed-forward (``mlp``; ``moe`` every
+``moe_layer_period``-th layer of an MoE config; ``cm``, the channel mix,
+in an RWKV layer). The JAX package stacks layers per cycle of
+``attn_pattern`` and scans them; the port loops over layers in Python, and
+``params_from_jax`` un-stacks a JAX tree into this list.
 
 Two modes share one layer: ``forward`` (``mode="train"`` or ``"prefill"``,
-which also emits the per-layer KV cache) and ``decode_step`` (one token
-against the cache). A cache is ``{"layers": [{"k", "v"}, ...], "pos": t}``
-with each layer's ``(B, S_buf, Hkv, D)`` buffers. The mode picks the code:
+which also emits the per-layer cache) and ``decode_step`` (one token
+against the cache). A cache is ``{"layers": [...], "pos": t}`` with one
+flat dict of tensors a layer: ``{"k", "v"}`` (B, S_buf, Hkv, D) for an
+attention layer, ``{"s", "x_tm", "x_cm"}`` for an RWKV layer (the wkv
+state (B, H, D, D) f32 and the last inputs of the time and channel mix,
+(B, d)) and ``{"h", "conv"}`` for an RG-LRU layer (the recurrence (B, r)
+f32 and the conv's last width-1 inputs (B, W-1, r)). The JAX package nests
+the same tensors as ``{"attn": {"k", "v"}}``, ``{"rwkv": {"s", "x_tm"},
+"rwkv_cm": {"x_cm"}}`` and ``{"rec": {"h", "conv"}}``. ``decode_step``
+writes every layer's new state into these tensors in place (``copy_``),
+so a CUDA graph of a step that reads and writes one cache's buffers
+advances it on every replay (``serving.engine``). The mode picks the code:
 
 * ``"prefill"`` and decode serve: prefill attention goes through the flash
   kernel (``models.attention.chunked_attention``), and the MoE layers'
   expert products of both through the grouped expert GEMM
-  (``models.moe``). Both kernels are forward-only.
+  (``models.moe``). Both kernels are forward-only. The recurrences are
+  plain ops in both packages (no Pallas kernel).
 * ``"train"`` is differentiable, as the JAX package's train mode is: that
   mode runs no Pallas kernel (its attention is a ``jnp`` loop, its expert
   products ``jnp.einsum``), and the JAX package has no backward kernel. So
@@ -30,8 +43,8 @@ with each layer's ``(B, S_buf, Hkv, D)`` buffers. The mode picks the code:
 
 ``lm_loss`` is the next-token cross-entropy the trainer minimises.
 
-RWKV, RG-LRU, encoder-decoder and frontend layers raise
-``NotImplementedError``: they come with later slices of the port.
+Encoder-decoder and frontend configs raise ``NotImplementedError``: they
+come with part c of slice 10 (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -46,7 +59,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.configs.base import GLOBAL, LOCAL, ModelConfig
+from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.device import require_device
 from repro_torch.models.attention import (
     cache_update_decode,
@@ -55,30 +68,30 @@ from repro_torch.models.attention import (
     decode_attention,
 )
 from repro_torch.models.common import apply_rope, dense_init, rms_norm, softcap
-from repro_torch.models.mlp import apply_mlp, init_mlp
+from repro_torch.models.mlp import apply_mlp, apply_rwkv_channel_mix, init_mlp
 from repro_torch.models.moe import apply_moe, init_moe, moe_capacity
-
-# ROADMAP.md, queue 1, names the slice that brings each of these
-_LATER = {
-    "encdec": "the slice of the rest of the LM stack",
-    "frontend": "the slice of the rest of the LM stack",
-    "recurrent": "the slice of the rest of the LM stack",
-}
-
+from repro_torch.models.rglru import (
+    apply_rglru_block,
+    apply_rglru_block_decode,
+    init_rglru_block,
+)
+from repro_torch.models.rwkv6 import (
+    apply_time_mix,
+    apply_time_mix_decode,
+    init_time_mix,
+)
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for layers the port has no code for."""
-    why = None
-    if cfg.is_encdec:
-        why = "encdec"
-    elif cfg.frontend is not None:
-        why = "frontend"
-    elif any(k not in (GLOBAL, LOCAL) for k in cfg.attn_pattern):
-        why = "recurrent"
+    """Raise ``NotImplementedError`` for what the port has no code for:
+    the encoder-decoder and the vision frontend (ROADMAP.md, queue 1,
+    slice 10 part c)."""
+    why = ("encoder-decoder" if cfg.is_encdec
+           else f"{cfg.frontend} frontend" if cfg.frontend is not None
+           else None)
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GLOBAL/LOCAL decoders only; "
-            f"{why} layers come with {_LATER[why]} (ROADMAP.md, queue 1)")
+            f"{cfg.name}: the port runs decoders only; {why} configs come "
+            "with part c of slice 10 (ROADMAP.md, queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -104,15 +117,30 @@ def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
     params = {"embed": w((cfg.vocab_padded, d), 0.02), "final_norm": ones()}
     if not cfg.tie_embeddings:
         params["lm_head"] = w((d, cfg.vocab_padded))
-    params["layers"] = [
-        {"ln1": ones(),
-         "attn": {"wq": w((d, cfg.n_heads * hd)),
-                  "wk": w((d, cfg.n_kv_heads * hd)),
-                  "wv": w((d, cfg.n_kv_heads * hd)),
-                  "wo": w((cfg.n_heads * hd, d))},
-         "ln2": ones(),
-         **_init_ffn(g, cfg, i, dt, dev)}
-        for i in range(cfg.n_layers)]
+    layers = []
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        p = {"ln1": ones()}
+        if kind == RWKV:
+            p["tm"] = init_time_mix(g, d, cfg.n_heads, cfg.rwkv_head_dim, dt,
+                                    dev)
+        elif kind == RGLRU:
+            p["rec"] = init_rglru_block(g, d, cfg.rglru_dim or d,
+                                        cfg.conv1d_width, dt, dev)
+        elif kind in (GLOBAL, LOCAL):
+            p["attn"] = {"wq": w((d, cfg.n_heads * hd)),
+                         "wk": w((d, cfg.n_kv_heads * hd)),
+                         "wv": w((d, cfg.n_kv_heads * hd)),
+                         "wo": w((cfg.n_heads * hd, d))}
+        else:
+            raise ValueError(kind)
+        p["ln2"] = ones()
+        if kind == RWKV:
+            p["cm"] = init_mlp(g, d, cfg.d_ff, "rwkv_cm", dt, dev)
+        else:
+            p.update(_init_ffn(g, cfg, i, dt, dev))
+        layers.append(p)
+    params["layers"] = layers
     return params
 
 
@@ -135,7 +163,12 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
     """The JAX package's ``init_lm`` tree (numpy leaves) as the port's
     parameters: ``tree["cycles"][j]`` stacks layer ``i*len(pattern)+j`` at
     index ``i``, and ``tree["rem"]`` holds the layers after the last full
-    cycle. Leaves keep their dtype (an MoE router stays f32)."""
+    cycle (RecurrentGemma's 38 layers: 12 cycles of 3, then 2). Every leaf
+    keeps its dtype: an MoE router, the RG-LRU's ``w_a``, ``w_x`` and
+    ``lam``, and the RWKV time mix's ``w0``, LoRA, ``u`` and ``ln_x`` stay
+    f32 in a bf16 model. The JAX package's decode caches nest a layer's
+    tensors one level deeper than the port's flat layer dicts (module
+    docstring); their tensors are the same."""
     check_supported(cfg)
     dev = require_device(device)
 
@@ -229,13 +262,70 @@ def _ffn(p, x, cfg: ModelConfig, moe_groups: int | None, train: bool):
     return apply_mlp(p["mlp"], x, cfg.act), {}
 
 
+def _write_state(cache: dict, **new) -> dict:
+    """A decode step's new recurrent state, copied into the layer's cache
+    buffers (once every new value is computed): a CUDA graph of the step
+    then advances the buffers it replays on."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+    return cache
+
+
+def _rwkv_layer(p, x, h, cfg: ModelConfig, mode: str, cache):
+    """An RWKV layer after its first norm ``h``: the time mix, then the
+    channel mix, each with its token shift -> (x, new cache, aux)."""
+    if mode == "decode":
+        o, (x_tm, s) = apply_time_mix_decode(p["tm"], h, cache["x_tm"],
+                                             cache["s"], n_heads=cfg.n_heads)
+    else:
+        b, hd = h.shape[0], cfg.rwkv_head_dim
+        s0 = torch.zeros((b, cfg.n_heads, hd, hd), dtype=torch.float32,
+                         device=h.device)
+        o, (x_tm, s) = apply_time_mix(p["tm"], h, torch.zeros_like(h[:, 0]),
+                                      s0, n_heads=cfg.n_heads)
+    x = x + o
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if mode == "decode":
+        y = apply_rwkv_channel_mix(p["cm"], h, cache["x_cm"][:, None])
+        new_cache = _write_state(cache, s=s, x_tm=x_tm, x_cm=h[:, 0])
+    else:
+        shifted = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        y = apply_rwkv_channel_mix(p["cm"], h, shifted)
+        new_cache = ({"s": s, "x_tm": x_tm.clone(), "x_cm": h[:, -1].clone()}
+                     if mode == "prefill" else None)
+    return x + y, new_cache, {}
+
+
+def _rglru(p, h, cfg: ModelConfig, mode: str, cache):
+    """The RG-LRU block -> (out, new cache)."""
+    if mode == "decode":
+        o, new = apply_rglru_block_decode(p, h, cache)
+        return o, _write_state(cache, **new)
+    b, r = h.shape[0], cfg.rglru_dim or cfg.d_model
+    state = {"h": torch.zeros((b, r), dtype=torch.float32, device=h.device),
+             "conv": torch.zeros((b, cfg.conv1d_width - 1, r),
+                                 dtype=cfg.torch_dtype, device=h.device)}
+    o, new = apply_rglru_block(p, h, state)
+    if mode != "prefill":
+        return o, None
+    return o, {"h": new["h"].clone(), "conv": new["conv"].clone()}
+
+
 def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
                 pos: int = 0, cache_pad: int = 0,
                 moe_groups: int | None = None):
-    """Returns (x, new_cache, aux)."""
+    """Returns (x, new_cache, aux). In decode the new cache is ``cache``,
+    its tensors advanced in place."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, new_cache = _self_attention(p["attn"], h, cfg, kind, mode, cache, pos,
-                                   cache_pad)
+    if kind == RWKV:
+        return _rwkv_layer(p, x, h, cfg, mode, cache)
+    if kind == RGLRU:
+        o, new_cache = _rglru(p["rec"], h, cfg, mode, cache)
+    elif kind in (GLOBAL, LOCAL):
+        o, new_cache = _self_attention(p["attn"], h, cfg, kind, mode, cache,
+                                       pos, cache_pad)
+    else:
+        raise ValueError(kind)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p, h, cfg, moe_groups, mode == "train")
@@ -332,24 +422,40 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
 def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device: str | torch.device = "cuda") -> dict:
     """Zeroed cache for ``cache_len`` positions (local layers keep at most
-    ``window`` slots)."""
+    ``window`` slots; recurrent layers keep their state, whatever the
+    length)."""
     check_supported(cfg)
     dev = require_device(device)
+    dt = cfg.torch_dtype
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     layers = []
     for i in range(cfg.n_layers):
-        buf = (min(cfg.window, cache_len) if cfg.layer_kind(i) == LOCAL
-               else cache_len)
-        shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
-        layers.append({
-            "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)})
+        kind = cfg.layer_kind(i)
+        if kind == RWKV:
+            hd = cfg.rwkv_head_dim
+            layers.append({"s": zeros(batch, cfg.n_heads, hd, hd,
+                                      dtype=torch.float32),
+                           "x_tm": zeros(batch, cfg.d_model),
+                           "x_cm": zeros(batch, cfg.d_model)})
+        elif kind == RGLRU:
+            r = cfg.rglru_dim or cfg.d_model
+            layers.append({"h": zeros(batch, r, dtype=torch.float32),
+                           "conv": zeros(batch, cfg.conv1d_width - 1, r)})
+        else:
+            buf = min(cfg.window, cache_len) if kind == LOCAL else cache_len
+            shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
+            layers.append({"k": zeros(*shape), "v": zeros(*shape)})
     return {"layers": layers, "pos": cache_len}
 
 
 def decode_step(params, cfg: ModelConfig, token, cache: dict, *,
                 moe_groups: int | None = None):
     """token: (B, 1) -> (logits (B, 1, Vp), cache advanced by one position;
-    the layers' buffers are updated in place)."""
+    every layer's buffers (KV and recurrent state) are updated in
+    place)."""
     x = _embed(params, cfg, token)
     pos = cache["pos"]
     layers = []

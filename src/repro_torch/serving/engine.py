@@ -25,7 +25,9 @@ length, batch and ``max_new`` are fixed per engine, so the graphs hold for
 every wave. The graphs read and write buffers the engine owns: a static
 cache (each wave's prefill cache is copied into it), a ``(B, 1)`` token
 input that each graph reads and overwrites with its token, and the
-``(B, max_new)`` token block. On the CPU every step runs eagerly.
+``(B, max_new)`` token block. A decode step advances the cache buffers in
+place, recurrent states too, so each wave's replays start from its own
+prefill's state. On the CPU every step runs eagerly.
 """
 from __future__ import annotations
 
@@ -187,19 +189,25 @@ class Engine(ServingBase):
             self._tok = torch.empty_like(tok)
             self._out = torch.empty((self.batch, self.max_new),
                                     dtype=torch.int32, device=self.device)
-        for mine, theirs in zip(self._cache["layers"], cache["layers"],
-                                strict=True):
-            for k, v in theirs.items():
-                mine[k].copy_(v)
-        del cache
-        self._tok.copy_(tok)
-        self._out[:, :1].copy_(tok)
-        if first and self.max_new > 1:
-            # the warm-up writes step 0's cache slot, as its graph will
-            self._step_graph(0)
+        def load():
+            """The prefill's cache and token into the graphs' buffers."""
+            for mine, theirs in zip(self._cache["layers"], cache["layers"],
+                                    strict=True):
+                for k, v in theirs.items():
+                    mine[k].copy_(v)
             self._tok.copy_(tok)
+            self._out[:, :1].copy_(tok)
+
+        load()
+        if first and self.max_new > 1:
+            # the warm-up step advances the buffers (it writes step 0's KV
+            # slot and moves a recurrent state); a capture runs nothing, so
+            # one more load puts them back where the replays start
+            self._step_graph(0)
             for i in range(self.max_new - 1):
                 self.graphs.capture(i, lambda i=i: self._step_graph(i))
+            load()
+        del cache
         replayed = self.graphs.replayed.copy()
         done = [False] * stop_rows
         n = 1

@@ -18,7 +18,12 @@ every leaf and does not clip), so it is not used.
 An update's ``ranks`` (a tree of ints, default each leaf's own rank) says
 which rank the weight decay reads for each leaf: the LM train step passes
 the ranks the leaves have in the JAX package's layout, which stacks the
-layers and so decays their norms too (``training.train_loop``).
+layers and so decays their norms too (``training.train_loop``). For the
+same reason both updates take ``groups`` (a tree of keys, default
+``None`` everywhere): leaves with one key form one JAX leaf, the stack of
+a cycle position's layers, and Adafactor's update clip takes the RMS over
+all of them; a leaf whose key is ``None`` stands alone. AdamW's update is
+elementwise and reads no groups.
 """
 from __future__ import annotations
 
@@ -80,8 +85,10 @@ def adamw_init(params, hp: OptHParams) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, step, hp: OptHParams, ranks=None):
-    """-> (new params, new state, {"grad_norm"})."""
+def adamw_update(params, grads, state, step, hp: OptHParams, ranks=None,
+                 groups=None):
+    """-> (new params, new state, {"grad_norm"}). AdamW's update is
+    elementwise, so ``groups`` changes nothing here."""
     scale, gn = _clip_scale(grads, hp.grad_clip)
     t = _t(step)
     c1 = 1.0 - hp.b1 ** t
@@ -123,12 +130,13 @@ def adafactor_init(params, hp: OptHParams) -> dict:
 
 @torch.no_grad()
 def adafactor_update(params, grads, state, step, hp: OptHParams,
-                     ranks=None):
+                     ranks=None, groups=None):
     """-> (new params, new state, {"grad_norm"})."""
     scale, gn = _clip_scale(grads, hp.grad_clip)
     beta2 = 1.0 - _t(step) ** -0.8
 
-    def upd(p, g, v, rank):
+    def scaled(p, g, v):
+        """The unclipped update and the new second moment."""
         g32 = g.float() * scale
         g2 = torch.square(g32) + 1e-30
         if _factored(p, hp):
@@ -143,17 +151,33 @@ def adafactor_update(params, grads, state, step, hp: OptHParams,
             vf = beta2 * v["v"] + (1 - beta2) * g2
             u = g32 * torch.rsqrt(torch.clamp(vf, min=1e-30))
             nv = {"v": vf}
-        # update clipping (Adafactor d=1.0)
-        urms = torch.sqrt(torch.square(u).mean() + 1e-30)
-        u = u / torch.clamp(urms, min=1.0)
-        if rank >= 2:
-            u = u + hp.weight_decay * p.float()
-        return (p.float() - hp.lr * u).to(p.dtype), nv
+        return u, nv
 
     # state["v"] holds a small dict at each param leaf: params' structure
     # is a prefix of it, so tree_map passes the dict whole
-    new_p, new_v = unzip(tree_map(upd, params, grads, state["v"],
-                                  _ranks(params, ranks)), 2)
+    us, new_v = unzip(tree_map(scaled, params, grads, state["v"]), 2)
+    if groups is None:
+        groups = tree_map(lambda _: None, params)
+    # a group's mean square: its squares summed over all its leaves
+    sums: dict = {}
+    for u, key in zip(tree_leaves(us), tree_leaves(groups), strict=True):
+        if key is not None:
+            sq, n = sums.get(key, (0.0, 0))
+            sums[key] = (sq + torch.square(u).sum(), n + u.numel())
+
+    def upd(p, u, key, rank):
+        # update clipping (Adafactor d=1.0), over the leaf or its group
+        if key is None:
+            ms = torch.square(u).mean()
+        else:
+            sq, n = sums[key]
+            ms = sq / n
+        u = u / torch.clamp(torch.sqrt(ms + 1e-30), min=1.0)
+        if rank >= 2:
+            u = u + hp.weight_decay * p.float()
+        return (p.float() - hp.lr * u).to(p.dtype)
+
+    new_p = tree_map(upd, params, us, groups, _ranks(params, ranks))
     return new_p, {"v": new_v}, {"grad_norm": gn}
 
 

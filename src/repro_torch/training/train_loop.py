@@ -12,12 +12,11 @@ launches no kernel (the JAX package trains through plain XLA ops). With
 ``compress_grads`` the accumulated gradient takes the EF-int8 round trip
 and the state carries its error as ``err``.
 
-The weight decay reads each leaf's rank in the JAX package's layout
-(``layout_ranks``), which stacks the layers: there a layer's norms have
-rank 2 and decay, and so they do here. Adafactor's update clip, which
-takes the RMS over a whole leaf, takes it over one layer here where the
-JAX package takes it over a stack of layers; no config the port has yet
-trains with Adafactor (ROADMAP.md, queue 1, slice 10).
+The optimizers read the JAX package's layout, which stacks the layers of
+each cycle position: the weight decay reads each leaf's rank there
+(``layout_ranks``: a layer's norms have rank 2 and decay), and Adafactor's
+update clip, which takes the RMS over a whole leaf, takes it over the
+leaves of one stack (``layout_groups``).
 """
 from __future__ import annotations
 
@@ -28,7 +27,7 @@ from repro_torch.device import require_device
 from repro_torch.models.transformer import check_supported, forward, init_lm, lm_loss
 from repro_torch.training import grad_compress
 from repro_torch.training.optimizer import OptHParams, make_optimizer
-from repro_torch.training.tree import tree_leaves, tree_map
+from repro_torch.training.tree import tree_leaves, tree_map, tree_map_with_path
 
 AUX_WEIGHTS = {"moe_lb_loss": 1e-2, "moe_z_loss": 1e-3}
 METRIC_AUX = ("moe_lb_loss", "moe_z_loss", "moe_dropped")
@@ -53,7 +52,7 @@ def make_loss_fn(cfg: ModelConfig):
     """-> ``loss_fn(params, batch) -> (total, metrics)``: the next-token
     loss plus the MoE auxiliaries at ``AUX_WEIGHTS``; metrics hold the
     loss without them and the auxiliaries."""
-    check_supported(cfg)  # vision and encoder-decoder batches: slice 10
+    check_supported(cfg)  # vision and encoder-decoder batches: slice 10 part c
 
     def loss_fn(params, batch):
         tokens = torch.as_tensor(batch["tokens"],
@@ -103,12 +102,31 @@ def layout_ranks(params, cfg: ModelConfig) -> dict:
     return ranks
 
 
+def layout_groups(params, cfg: ModelConfig) -> dict:
+    """Which leaves form one leaf of the JAX package's layout: layer
+    ``i*len(pattern)+j``, for ``i`` below the number of full cycles, lies
+    in the stack of cycle position ``j``, so each of its leaves gets the
+    key ``("cycle", j, path in the layer)``; the layers after the last full
+    cycle and the leaves outside the layers stand alone (``None``)."""
+    cycle = len(cfg.attn_pattern)
+    stacked = cfg.n_layers // cycle * cycle
+
+    def key(path, _):
+        if path[0] == "layers" and path[1] < stacked:
+            return ("cycle", path[1] % cycle) + path[2:]
+        return None
+
+    return tree_map_with_path(key, params)
+
+
 def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
                     n_microbatches: int = 1, compress_grads: bool = False,
                     grad_shardings=None, accum_dtype=torch.float32):
     """-> ``train_step(state, batch) -> (new state, metrics)``; metrics:
     ``loss`` (with microbatches, the mean of the microbatches' totals, as
-    in the JAX package), the MoE auxiliaries and ``grad_norm``."""
+    in the JAX package), the MoE auxiliaries and ``grad_norm``. A batch
+    whose rows ``n_microbatches`` does not divide raises ``ValueError``, as
+    the JAX step's reshape does."""
     if grad_shardings is not None:
         raise NotImplementedError(
             "grad_shardings (gradient accumulators sharded over a mesh) come "
@@ -119,6 +137,12 @@ def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
 
     def train_step(state, batch):
         params = state["params"]
+        for k, v in batch.items():
+            rows = torch.as_tensor(v).shape[0]
+            if rows % n_microbatches:
+                raise ValueError(f"batch[{k!r}] has {rows} rows, which "
+                                 f"{n_microbatches} microbatches do not "
+                                 "divide")
         if n_microbatches == 1:
             (_, metrics), grads = grad_fn(params, batch)
         else:
@@ -154,7 +178,7 @@ def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
 
         new_params, new_opt, opt_metrics = opt_update(
             params, grads, state["opt"], state["step"], hp,
-            layout_ranks(params, cfg))
+            layout_ranks(params, cfg), layout_groups(params, cfg))
         del grads
         metrics = dict(metrics, **opt_metrics)
         new_state = dict(state, params=new_params, opt=new_opt,

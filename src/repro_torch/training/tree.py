@@ -20,6 +20,18 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, prefix: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, paths as in
+    ``tree_leaves_with_path``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], prefix + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, x, prefix + (i,))
+                for i, x in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 def tree_leaves_with_path(tree, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
     """``[(path, leaf), ...]``: a path is the dict keys and list indices
     from the root."""

@@ -14,6 +14,7 @@ import torch
 from repro_torch import engine
 from repro_torch.configs import get_config
 from repro_torch.data.scenes import N_CLASSES, make_scene
+from repro_torch.kernels import build
 from repro_torch.kernels.flash import flash
 from repro_torch.kernels.flash.flash import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash.ref import FLASH_CASES, FLASH_TOL, random_qkv
@@ -365,16 +366,17 @@ def test_flash_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
-    """No fallback hides the kernel: a bf16 call at an unsupported head dim
-    or on a strided view raises in the wrapper, and the C entry refuses a
-    head dim it has no kernel for, which the wrapper turns into an
-    error."""
+    """No fallback hides the kernel: a bf16 call at a head dim above the
+    largest instantiation or on a strided view raises in the wrapper, and
+    the C entry refuses a head dim it has no kernel for (the wrapper pads
+    such a dim first)."""
     q, k, v = (x.to(cuda_device) for x in random_qkv(
         np.random.default_rng(0), b=1, sq=64, skv=64, hq=2, hkv=1, d=64,
         dtype=torch.bfloat16))
     launches = flash_attention.launches
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(*(x[..., :48].contiguous() for x in (q, k, v)))
+    with pytest.raises(ValueError, match="head dim 288"):
+        flash_attention(*(torch.cat([x] * 5, -1)[..., :288].contiguous()
+                          for x in (q, k, v)))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q[:, ::2], k[:, ::2], v[:, ::2])
     out = torch.empty_like(q)
@@ -384,6 +386,31 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
         torch.cuda.current_stream().cuda_stream)
     assert err != 0
     assert flash_attention.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,kd", [(120, 128), (96, 128), (48, 64)])
+def test_flash_pads_a_head_dim_to_an_instance_without_spills(cuda_device, d,
+                                                             kd):
+    """A head dim between instantiations is one launch of the next one up
+    (zero-padded q, k, v at the real dim's scale), within bf16's tolerance
+    of the plain version, and that instantiation spills nothing."""
+    q, k, v = (x.to(cuda_device) for x in random_qkv(
+        np.random.default_rng(d), b=2, sq=130, skv=130, hq=8, hkv=2, d=d,
+        dtype=torch.bfloat16))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, window=64)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    want = flash_attention_plain(q, k, v, window=64)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max(
+    ).clamp(min=1.0)
+    assert float(err) <= FLASH_TOL[torch.bfloat16]
+    report = build.ptxas_report(build.ptxas_log(flash.KERNEL).read_text())
+    spills = [sp for name, (_, sp) in report.items()
+              if "flash_fwd_bf16" in name and f"ILi{kd}E" in name]
+    assert spills == [0]
 
 
 @pytest.mark.cuda
@@ -1009,7 +1036,12 @@ def test_graph_capture_survives_a_dead_engines_graphs(cuda_device):
 
 def _decode_cfg(arch):
     """Two layers at the published widths, in bf16 (Gemma-2's window cut to
-    32 so a 40-token prompt fills its ring cache)."""
+    32 so a 40-token prompt fills its ring cache); the recurrent configs
+    reduced, in bf16 (RecurrentGemma's 3 layers: two RG-LRU layers and a
+    local one whose reduced window of 32 the prompt fills)."""
+    if arch in ("rwkv6-7b", "recurrentgemma-9b"):
+        return dataclasses.replace(get_config(arch).reduced(),
+                                   dtype="bfloat16")
     cfg = dataclasses.replace(get_config(arch), n_layers=2)
     return (dataclasses.replace(cfg, window=32) if arch == "gemma2-2b"
             else cfg)
@@ -1017,10 +1049,12 @@ def _decode_cfg(arch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
-@pytest.mark.parametrize("arch", ["gemma2-2b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "moonshot-v1-16b-a3b",
+                                  "rwkv6-7b", "recurrentgemma-9b"])
 def test_graph_decode_tokens_equal_eager(cuda_device, arch, sync):
     """The engine's decode-step graphs emit exactly the eager steps' tokens
-    over two waves (the second re-fills the static cache), and each graph
+    over two waves (the second re-fills the static cache: KV buffers and
+    recurrent states, which each replay advances in place), and each graph
     recorded the launches of an eager step."""
     from repro_torch.serving.engine import Engine, Request, make_prefill, make_serve_step
 

@@ -138,8 +138,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="one dtype"):
         flash_attention(q, k.bfloat16(), v)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    # any head dim on the CPU (the plain version), as the JAX attention
+    launches = flash_attention.launches
+    q48, k48, v48 = (x[..., :48] for x in (q, k, v))
+    assert torch.equal(flash_attention(q48, k48, v48),
+                       flash_attention_plain(q48, k48, v48))
+    assert flash_attention.launches == launches
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_attention(q[:, :, :3], k, v)
     with pytest.raises(ValueError, match="window"):
@@ -148,6 +152,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k, v, softcap=-1.0)
     with pytest.raises(RuntimeError, match="forward-only"):
         flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("window", [None, 40], ids=["causal", "window"])
+def test_head_dim_120_matches_jax_chunked_attention(window):
+    """H2O-Danube-3's head dim: the wrapper's plain path and the model's
+    ``chunked_attention`` against the JAX package's ``chunked_attention``
+    (GQA group 4), f32 within 1e-5."""
+    from repro.models.attention import chunked_attention as jax_chunked
+    from repro_torch.models.attention import chunked_attention
+
+    rng = np.random.default_rng(120)
+    q = rng.normal(size=(2, 96, 8, 120)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 96, 2, 120)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jax_chunked(*map(jnp.asarray, (q, k, v)), causal=True,
+                                  window=window, q_chunk=32, kv_chunk=32))
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    for got in (flash_attention_plain(qt, kt, vt, window=window),
+                chunked_attention(qt, kt, vt, window=window)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_wrapper_runs_the_plain_version_only_on_the_cpu():

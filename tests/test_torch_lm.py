@@ -52,9 +52,11 @@ def test_config_matches_jax(name, reduced):
 
 
 def test_registry():
-    assert list_configs() == sorted(ARCHS + ["moonshot-v1-16b-a3b"])
+    assert list_configs() == sorted(ARCHS + [
+        "moonshot-v1-16b-a3b", "granite-8b", "h2o-danube-3-4b",
+        "llama4-maverick-400b-a17b", "recurrentgemma-9b", "rwkv6-7b"])
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("granite-8b")
+        get_config("pixtral-12b")
 
 
 def test_rms_norm_and_softcap_match_jax():
@@ -254,13 +256,17 @@ def test_init_lm_is_seeded_and_shaped_like_jax():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("change", [
-    dict(encoder_layers=2), dict(frontend="vision"),
-    dict(attn_pattern=("rwkv",))])
-def test_layers_of_later_slices_raise(change):
+@pytest.mark.parametrize("change,error,match", [
+    (dict(encoder_layers=2), NotImplementedError, "ROADMAP.md"),
+    (dict(frontend="vision"), NotImplementedError, "ROADMAP.md"),
+    (dict(attn_pattern=("mamba",)), ValueError, "mamba")])
+def test_layers_of_later_slices_raise(change, error, match):
+    """Encoder-decoder and vision configs, which a later slice ports, are
+    refused naming ROADMAP.md; a layer kind that no slice ports is refused
+    too, so none falls through to another kind's layer."""
     cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(), **change)
     assert isinstance(cfg, ModelConfig)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         transformer.init_lm(cfg, device="cpu")
 
 

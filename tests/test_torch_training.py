@@ -117,6 +117,81 @@ def test_adafactor_update_matches_jax():
         _assert_trees_close(s, js, **OPT_TOL)
 
 
+def test_adafactor_clips_over_a_stacked_group_as_jax():
+    """Three layers that the JAX package stacks into one (3, 130, 136) leaf,
+    with update RMS that differ per layer (layer 1's gradient has spikes,
+    so its clip is active): with ``groups`` naming them one stack the
+    port's update equals the JAX update of the stacked leaf within 1e-6;
+    clipped per layer (no groups) it does not."""
+    rng = np.random.default_rng(12)
+    stack = rng.normal(size=(3, 130, 136)).astype(np.float32)
+    g = rng.normal(size=(3, 130, 136)).astype(np.float32) * 0.01
+    g[1, ::13, ::17] *= 300.0
+    g[2] *= 0.1
+    vec = rng.normal(size=(136,)).astype(np.float32)
+    gvec = rng.normal(size=(136,)).astype(np.float32) * 0.01
+    jhp, hp = joptimizer.OptHParams(lr=1e-2), optimizer.OptHParams(lr=1e-2)
+    jparams = {"stack": stack, "vec": vec}
+    jnew, _, _ = joptimizer.adafactor_update(
+        jparams, {"stack": g, "vec": gvec},
+        joptimizer.adafactor_init(jparams, jhp), jnp.int32(0), jhp)
+
+    def port(x):
+        return {"layers": [{"w": torch.from_numpy(x[i].copy())}
+                           for i in range(3)]}
+
+    params = dict(port(stack), vec=torch.from_numpy(vec))
+    grads = dict(port(g), vec=torch.from_numpy(gvec))
+    groups = {"layers": [{"w": ("cycle", 0, "w")}] * 3, "vec": None}
+    ranks = {"layers": [{"w": 3}] * 3, "vec": 1}
+    state = optimizer.adafactor_init(params, hp)
+    us = []
+    for grp in (groups, None):
+        new, _, _ = optimizer.adafactor_update(params, grads, state, 0, hp,
+                                               ranks, grp)
+        us.append(np.stack([_np(lp["w"]) for lp in new["layers"]]))
+        np.testing.assert_allclose(_np(new["vec"]), np.asarray(jnew["vec"]),
+                                   **OPT_TOL)
+    np.testing.assert_allclose(us[0], np.asarray(jnew["stack"]), **OPT_TOL)
+    assert np.abs(us[1] - np.asarray(jnew["stack"])).max() > 1e-4
+
+
+def test_layout_groups_name_the_stacked_layers():
+    """RecurrentGemma's pattern at 8 layers: 2 cycles of 3 stacked by cycle
+    position, 2 layers after them alone, like everything outside the
+    layers."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              n_layers=8)
+    params = transformer.init_lm(cfg, device="cpu")
+    groups = train_loop.layout_groups(params, cfg)
+    assert groups["embed"] is None and groups["final_norm"] is None
+    for i, lg in enumerate(groups["layers"]):
+        keys = {k for _, k in tree_leaves_with_path(lg)}
+        if i < 6:
+            assert {k[:2] for k in keys} == {("cycle", i % 3)}
+            assert groups["layers"][i % 3] == lg
+        else:
+            assert keys == {None}
+
+
+def test_microbatch_split_refuses_what_jax_refuses():
+    """A batch of 3 rows in 2 microbatches: the JAX step's reshape fails,
+    and the port's step raises (it used to train on 2 of the rows)."""
+    name = "stablelm-1.6b"
+    jcfg, cfg = jax_get_config(name).reduced(), get_config(name).reduced()
+    hp, jhp = optimizer.OptHParams(lr=1e-3), joptimizer.OptHParams(lr=1e-3)
+    toks = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (3, 9)).astype(np.int32)
+    jstate = jtrain_loop.init_train_state(jax.random.PRNGKey(0), jcfg, jhp)
+    with pytest.raises(TypeError, match="reshape"):
+        jtrain_loop.make_train_step(jcfg, jhp, n_microbatches=2)(
+            jstate, {"tokens": jnp.asarray(toks)})
+    state = train_loop.init_train_state(cfg, hp, device="cpu")
+    step = train_loop.make_train_step(cfg, hp, n_microbatches=2)
+    with pytest.raises(ValueError, match="3 rows"):
+        step(state, {"tokens": toks})
+
+
 def test_clip_by_global_norm_and_make_optimizer_match_jax():
     _, (g, big) = _opt_trees(2, ADAMW_SHAPES)
     for tree in (g, big):
