@@ -184,6 +184,30 @@
    published widths for 2 AdamW steps each in bf16 with remat, and reduced
    Maverick for 8 Adafactor steps (a held batch's loss must fall); no
    kernel launches in a step.
+22. Splits seed 0's scene ("SCN sharded", after the streaming phase) over 2
+   and 4 shards (``engine.ShardLayout``) and runs it as the loop over the
+   shards on the card: host plan seconds, halo rows a conv, logits within
+   1e-3 of ``reference`` and two runs bit for bit, the forward's ms and
+   busy share beside the unsharded ``reference``'s, and no kernel wrapper
+   launched (the JAX package's sharded path is plain ops too). Then a
+   ``SceneEngine(layout=pin_halo(...))`` serves seeds 0-1 as one wave of
+   2, each scene's logits equal to its own sharded forward.
+23. Serves Pixtral-12B and SeamlessM4T-medium at their published widths
+   and depths (after the slice-10 configs, each freed before the next),
+   bf16 with weights drawn on the card: one wave of 2 prompts through
+   ``make_prefill`` (Pixtral: 512 tokens whose first 256 positions are
+   seeded patch embeddings; Seamless: 256 tokens over sources of 384
+   seeded frames) and ``Engine.decode`` on the decode-step graphs, graph
+   tokens equal to eager steps. A prefill launches flash once a layer
+   (Seamless: 12 encoder launches without a causal mask, 12 causal
+   self-attention and 12 cross-attention launches with Sq < Skv); every
+   launch is held against its plain version and the first of each kind
+   timed through ``flash_row`` (beside SDPA). Prints prefill ms, decode ms
+   a token (graph against eager) with busy shares, and peak memory.
+24. Trains Pixtral-12B at its published widths and 6 of its 40 layers (2
+   AdamW steps, the patch embeddings a batch key) and SeamlessM4T-medium at
+   full depth (6 AdamW steps over source frames; a held batch's loss must
+   fall), last; no kernel launches in a step.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
@@ -313,6 +337,27 @@ LM10_PROMPT, LM10_NEW = 256, 8
 # a parameter, as StableLM-2's step measured), batches of 2 x 512 tokens
 LM10_TRAIN = {"recurrentgemma-9b": 6, "rwkv6-7b": 8}
 LM10_TRAIN_BATCH, LM10_TRAIN_SEQ, LM10_TRAIN_STEPS = 2, 512, 2
+# slice 10, part c, at published widths and depths with LM10_NEW new
+# tokens: Pixtral-12B serves a wave of BATCH prompts of VLM_PROMPT tokens
+# whose first 256 positions are seeded patch embeddings; SeamlessM4T-medium
+# a wave of BATCH prompts of ENCDEC_PROMPT tokens over sources of
+# ENCDEC_SRC seeded frames (so its cross attention has Sq < Skv)
+VLM_ARCH, VLM_PROMPT = "pixtral-12b", 512
+ENCDEC_ARCH, ENCDEC_PROMPT, ENCDEC_SRC = "seamless-m4t-medium", 256, 384
+PART_C_PUBLISHED = {
+    VLM_ARCH: (40, 5120, 32, 8, 128, 14336, 131072, 0, 1),
+    ENCDEC_ARCH: (12, 1024, 16, 16, 64, 4096, 256206, 0, 1),
+}
+# Pixtral's AdamW steps (LM10_TRAIN_STEPS of LM10_TRAIN_BATCH x VLM_PROMPT
+# tokens) at the depth one card holds with the functional update's two
+# states: ~25 bytes a parameter, (6 x 0.273 + 1.342 embedding and head) B
+# parameters ~ 69 GiB; Seamless trains at full depth, ENCDEC_TRAIN_STEPS
+# steps, and a held batch's loss must fall
+VLM_TRAIN_LAYERS = 6
+ENCDEC_TRAIN_STEPS = 6
+# SCN sharded (slice 9): seed 0's scene split over each of these shard
+# counts, as the loop over shards on the one card
+SHARDS = (2, 4)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -503,8 +548,9 @@ def flash_row(q, k, v, kw: dict, what: str, reps: int = 5) -> dict:
     launch's bound. A head dim between instantiations also times the launch
     on inputs padded to the next one, so the pad costs the difference.
     Where no softcap is set and the window masks nothing, SDPA (GQA) computes
-    the same function and is timed as the library's yardstick, which the
-    port never calls; otherwise ``library_ms`` is None."""
+    the same function (causal at Sq = Skv, or without a mask at any lengths)
+    and is timed as the library's yardstick, which the port never calls;
+    otherwise ``library_ms`` is None."""
     from repro_torch.kernels.flash.flash import (
         HEAD_DIMS,
         flash_attention,
@@ -545,8 +591,10 @@ def flash_row(q, k, v, kw: dict, what: str, reps: int = 5) -> dict:
                  f"{row['padded_ms']:.4f} ms (device "
                  f"{row['padded_device_ms']:.4f}), so the pad costs "
                  f"{row['pad_ms']:.4f} ms (device {row['pad_device_ms']:.4f})")
-    if (not kw.get("softcap") and q.shape[1] == k.shape[1]
-            and (window is None or window >= q.shape[1])):
+    # SDPA's causal mask sits at the top left, the kernel's at the end of
+    # the keys: they agree where Sq = Skv, and without a mask at any Sq, Skv
+    if (not kw.get("softcap") and (not causal or q.shape[1] == k.shape[1])
+            and (window is None or (causal and window >= q.shape[1]))):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
@@ -3309,6 +3357,366 @@ def recurrent_training_path(dev: torch.device, phase: Phases,
     return out
 
 
+def part_c_inputs(cfg, dev: torch.device, batch: int, length: int,
+                  seed: int) -> tuple[np.ndarray, dict]:
+    """A ``TokenStream`` batch of ``length`` (+1) tokens, and the config's
+    other input drawn on the card in its dtype from ``seed``: Pixtral's
+    patch embeddings (``n_frontend_tokens`` a row) or Seamless's source
+    frames (``ENCDEC_SRC`` a row)."""
+    from repro_torch.data.tokens import TokenStream
+
+    toks = next(TokenStream(cfg.vocab_size, batch, length, seed=seed))["tokens"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = (cfg.n_frontend_tokens if cfg.frontend == "vision"
+            else ENCDEC_SRC)
+    x = torch.randn((batch, rows, cfg.d_model), generator=g, device=dev,
+                    dtype=cfg.torch_dtype)
+    return toks, ({"frontend_embeds": x} if cfg.frontend == "vision"
+                  else {"enc_frames": x})
+
+
+def part_c_path(dev: torch.device, phase: Phases, arch: str,
+                card: str) -> dict:
+    """Phases "<arch> ..." of slice 10 part c: Pixtral-12B or
+    SeamlessM4T-medium at its published widths and depth, seeded on the
+    card, serving one wave through ``make_prefill`` (with the patch
+    embeddings or the source frames) and ``Engine.decode`` on the
+    decode-step graphs; graph tokens against eager steps; every flash
+    launch of a prefill (Pixtral: a self-attention a layer; Seamless: an
+    encoder layer's without a causal mask, then a decoder layer's causal
+    self-attention and its cross attention, Sq < Skv) held against its
+    plain version, the first of each kind timed through ``flash_row``;
+    prefill and decode timed with their busy shares. Returns the numbers
+    for the JSON."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash.flash import flash_attention_plain
+    from repro_torch.kernels.flash.ref import FLASH_TOL
+    from repro_torch.models import attention, transformer
+    from repro_torch.serving.engine import Engine, make_prefill, make_serve_step
+
+    phase(f"{arch} init")
+    cfg = get_config(arch)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.moe.n_experts,
+           cfg.moe.top_k) == PART_C_PUBLISHED[arch],
+          f"{arch} is not at its published widths")
+    check(cfg.torch_dtype == torch.bfloat16, f"{arch} runs in bf16")
+    length = ENCDEC_PROMPT if cfg.is_encdec else VLM_PROMPT
+    kinds = (["encoder"] * cfg.encoder_layers + ["self", "cross"] * cfg.n_layers
+             if cfg.is_encdec else ["self"] * cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_lm(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    toks, extra = part_c_inputs(cfg, dev, BATCH, length, 0)
+    toks = torch.as_tensor(toks[:, :length], device=dev)
+    print(f"{arch}: {n_params / 1e9:.4f} B parameters in bf16, "
+          f"{cfg.n_layers} layers" + (f" and {cfg.encoder_layers} encoder "
+                                      f"layers" if cfg.is_encdec else "")
+          + f"; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
+          f"batch {BATCH}, prompts of {length}, "
+          + ", ".join(f"{k} {tuple(v.shape)}" for k, v in extra.items())
+          + f", {LM10_NEW} new tokens")
+
+    phase(f"{arch} serving")
+    zero_kernel_counts()
+    eng = Engine(cfg, params, BATCH, length, LM10_NEW, device=dev)
+    prefill = make_prefill(cfg, cache_pad=LM10_NEW)
+    notes: dict = {}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, toks, **extra)
+        n_flash = kernel_counts()["flash_fwd"]
+        served = eng.decode(logits, cache, notes=notes)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    del cache
+    check(n_flash == len(kinds), f"{arch}: the prefill launched flash "
+          f"{n_flash} times, not {len(kinds)}")
+    check(launched_only("flash_fwd"), f"the {arch} path launched another "
+          "kernel")
+    check(kernel_counts()["flash_fwd"] == n_flash
+          and not notes["graph_launches"].get("flash_fwd"),
+          f"{arch}: flash launched in decode")
+    check(len(eng.graphs) == LM10_NEW - 1, f"{len(eng.graphs)} step graphs")
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (BATCH, cfg.vocab_padded),
+          f"{arch}: prefill logits not finite or of the wrong shape")
+    check(tuple(served.shape) == (BATCH, LM10_NEW)
+          and bool(((served >= 0) & (served < cfg.vocab_size)).all()),
+          f"{arch}: tokens out of range")
+    print(f"{arch} serve: {serve_s:.3f} s for one wave (make_prefill and "
+          f"Engine.decode); flash {n_flash} in the prefill "
+          f"({', '.join(f'{k} {kinds.count(k)}' for k in dict.fromkeys(kinds))}"
+          f"), none in the {LM10_NEW - 1} step graphs; tokens "
+          f"{served.tolist()}")
+
+    phase(f"{arch} decode graph")
+    step = make_serve_step(cfg)
+
+    def prefill_extra(p, t):
+        return prefill(p, t, **extra)
+
+    def greedy(logits, cache):
+        return greedy_tokens(step, params, cfg, logits, cache, LM10_NEW)
+
+    decode = decode_graph(eng, prefill_extra, greedy, toks, arch, LM10_NEW)
+    eng.close()
+    del eng
+    gc.collect()
+
+    phase(f"{arch} checks")
+    out = {"params": n_params, "layers": cfg.n_layers, "serve_s": serve_s,
+           "launches": n_flash, "decode": decode}
+    kernel_bshd = attention.flash_attention_bshd
+    flash_in = []
+
+    def record_flash(q, k, v, **kw):
+        flash_in.append((q, k, v, kw))
+        return kernel_bshd(q, k, v, **kw)
+
+    with torch.inference_mode():
+        attention.flash_attention_bshd = record_flash
+        try:
+            prefill(params, toks, **extra)
+        finally:
+            attention.flash_attention_bshd = kernel_bshd
+        check(len(flash_in) == len(kinds),
+              f"{arch}: recorded {len(flash_in)} flash calls")
+        rows, worst = {}, {}
+        for i, (kind, (q, k, v, kw)) in enumerate(zip(kinds, flash_in)):
+            if kind not in rows:
+                rows[kind] = flash_row(q, k, v, kw,
+                                       f"{arch}, {kind} attention [{card}]")
+                err = rows[kind]["rel_err"]
+            else:
+                got, want = kernel_vs_plain(
+                    "flash_fwd", lambda: kernel_bshd(q, k, v, **kw),
+                    lambda: flash_attention_plain(q, k, v, **kw),
+                    f"{arch} flash launch {i} ({kind})")
+                err = max_err(got.float(), want.float())[1]
+                del got, want
+            check(err <= FLASH_TOL[q.dtype],
+                  f"{arch}: flash launch {i} ({kind}) disagrees")
+            worst[kind] = max(worst.get(kind, 0.0), err)
+        flash_in.clear()
+        print(f"{arch}: every flash launch of a prefill ({len(kinds)}) vs "
+              f"its plain version, worst rel by kind: "
+              + ", ".join(f"{k} {kinds.count(k)} launches {e:.3g}"
+                          for k, e in worst.items())
+              + f" (tol {FLASH_TOL[torch.bfloat16]})")
+        out["flash"] = {k: dict(r, launches=kinds.count(k),
+                                worst_rel_err=worst[k])
+                        for k, r in rows.items()}
+
+        phase(f"{arch} timing")
+        prefill_ms = host_ms(lambda: prefill(params, toks, **extra), 3)
+        busy = busy_report(f"{arch} prefill",
+                           lambda: prefill(params, toks, **extra), prefill_ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch}: prefill {prefill_ms:.3f} ms a wave of {BATCH} x {length}"
+          f"; decode {decode['graph']['ms']:.3f} ms a token as step graphs, "
+          f"{decode['eager']['ms']:.3f} eager; peak memory {peak:.2f} GiB "
+          f"[{card}]")
+    out.update(prefill_ms=prefill_ms, prefill_busy_ms=busy["busy_ms"],
+               peak_gib=peak)
+    return out
+
+
+def part_c_training_path(dev: torch.device, phase: Phases,
+                         card: str) -> dict:
+    """Phases "pixtral-12b training" and "seamless-m4t-medium training":
+    AdamW steps (f32 moments, bf16 with remat) of Pixtral-12B at its
+    published widths and ``VLM_TRAIN_LAYERS`` of its 40 layers, the patch
+    embeddings a batch key, and of SeamlessM4T-medium at full depth over
+    ``ENCDEC_TRAIN_STEPS`` batches of source frames and tokens, where a
+    held batch's loss must fall. No kernel launches in a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import OptHParams
+
+    out = {}
+    hp = OptHParams(lr=LM_TRAIN_LR, moment_dtype=torch.float32)
+    for arch, depth, steps in ((VLM_ARCH, VLM_TRAIN_LAYERS, LM10_TRAIN_STEPS),
+                               (ENCDEC_ARCH, None, ENCDEC_TRAIN_STEPS)):
+        phase(f"{arch} training")
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        check(cfg.torch_dtype == torch.bfloat16 and cfg.remat,
+              f"{arch} trains in bf16 with remat")
+        length = ENCDEC_PROMPT if cfg.is_encdec else VLM_PROMPT
+        torch.cuda.reset_peak_memory_stats()
+        state = train_loop.init_train_state(
+            cfg, hp, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in leaves(state["params"]))
+        step_fn = train_loop.make_train_step(cfg, hp)
+        loss_fn = train_loop.make_loss_fn(cfg)
+
+        def batch(seed, rows=LM10_TRAIN_BATCH):
+            toks, extra = part_c_inputs(cfg, dev, rows, length, seed)
+            return dict(extra, tokens=toks)
+
+        held = batch(99, 4)
+
+        def held_loss():
+            with torch.no_grad():
+                return float(loss_fn(state["params"], held)[1]["loss"])
+
+        zero_kernel_counts()
+        before = held_loss()
+        losses, step_ms = [], []
+        for i in range(steps):
+            b = batch(i + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        after = held_loss()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = kernel_counts()
+        print(f"{arch} training: {n_params / 1e9:.4f} B parameters "
+              f"({cfg.n_layers} of {get_config(arch).n_layers} layers), "
+              f"AdamW steps of {LM10_TRAIN_BATCH} x {length} tokens: "
+              f"{', '.join(f'{t:.1f}' for t in step_ms)} ms; peak memory "
+              f"{peak:.2f} GiB; loss {', '.join(f'{x:.4f}' for x in losses)}"
+              f"; a held batch's loss {before:.4f} -> {after:.4f}; kernel "
+              f"launches {launched} [{card}]")
+        check(all(np.isfinite(losses)), f"{arch}: a non-finite loss")
+        check(not any(launched.values()), f"an {arch} train step launched "
+              "a kernel")
+        if cfg.is_encdec:
+            check(after < before, f"the {arch} held batch's loss did not "
+                  "fall")
+        out[arch] = {"layers": cfg.n_layers, "params": n_params,
+                     "step_ms": step_ms, "peak_gib": peak, "losses": losses,
+                     "held_before": before, "held_after": after}
+        del state, m, step_fn, held
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def scn_sharded_path(dev: torch.device, phase: Phases, seed0: dict,
+                     card: str) -> dict:
+    """Phases "SCN sharded" (slice 9): seed 0's scene at the published
+    widths split over each of ``SHARDS`` shards, run as the loop over
+    shards on the card (one card holds them all; the process form needs a
+    card a shard): host plan seconds, halo rows a conv, logits against the
+    unsharded ``reference`` (``LOGITS_TOL``) and two runs bit for bit, the
+    forward's ms and busy share beside ``reference``'s, and no kernel
+    wrapper launched (the sharded path is plain ops, as the JAX package's
+    is). Then a ``SceneEngine(layout=pin_halo(...))`` serves seeds 0-1 as
+    one wave of 2: each scene's logits equal its own sharded forward."""
+    from repro_torch import engine
+    from repro_torch.data.scenes import make_scene
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+    from repro_torch.sparse.tensor import SparseVoxelTensor
+
+    cfg, model, feats = seed0["cfg"], seed0["model"], seed0["feats"]
+    scenes = []
+    for seed in (0, 1):
+        coords, f, _, mask = make_scene(seed, RESOLUTION, CAPACITY,
+                                        points_per_unit=POINTS_PER_UNIT)
+        scenes.append(SparseVoxelTensor(coords, f, mask))
+    out = {}
+    with torch.inference_mode():
+        ref = engine.apply_unet(model, feats, seed0["plan"],
+                                backend="reference", device=dev)
+        ref_ms = host_ms(lambda: engine.apply_unet(
+            model, feats, seed0["plan"], backend="reference", device=dev), 3)
+        print(f"SCN sharded: the unsharded reference forward of seed 0 "
+              f"{ref_ms:.3f} ms")
+        for n in SHARDS:
+            phase(f"SCN sharded {n}")
+            t0 = time.perf_counter()
+            host = engine.build_sharded_scene_plan_host(
+                scenes[0], cfg, layout=engine.ShardLayout(n_shards=n))
+            plan_s = time.perf_counter() - t0
+            plan = host.device_upload(dev)
+            halo = [(f"L{lvl['level']} {site}", rows)
+                    for lvl in host.stats
+                    for site, rows in lvl["halo_rows"].items()]
+            zero_kernel_counts()
+            a = engine.apply_unet(model, feats, plan, device=dev)
+            b = engine.apply_unet(model, feats, plan, device=dev)
+            torch.cuda.synchronize()
+            check(launched_only(), f"the {n}-shard forward launched a kernel "
+                  f"wrapper: {kernel_counts()}")
+            check(a.shape == ref.shape and bool(torch.isfinite(a).all()),
+                  "sharded logits not finite or of the wrong shape")
+            check(torch.equal(a, b), f"two {n}-shard runs differ")
+            abs_err, rel_err = max_err(a, ref)
+            check(rel_err <= LOGITS_TOL, f"{n}-shard logits disagree with "
+                  "reference")
+            fwd_ms = host_ms(lambda: engine.apply_unet(model, feats, plan,
+                                                       device=dev), 3)
+            busy = busy_report(f"SCN sharded {n}", lambda: engine.apply_unet(
+                model, feats, plan, device=dev), fwd_ms)
+            print(f"SCN sharded {n}: host plan {plan_s:.2f} s; halo rows a "
+                  f"conv {', '.join(f'{k} {r}' for k, r in halo)} "
+                  f"({host.halo_rows()} a forward, budget "
+                  f"{max(max(lvl['halo_budget'].values()) for lvl in host.stats)}"
+                  f" a pair); forward {fwd_ms:.3f} ms (the loop over {n} "
+                  f"shards; reference {ref_ms:.3f}); logits vs reference max "
+                  f"abs {abs_err:.3g} rel {rel_err:.3g} (tol {LOGITS_TOL}), "
+                  f"two runs bit for bit; kernel launches {kernel_counts()} "
+                  f"[{card}]")
+            out[n] = {"plan_s": plan_s, "halo_rows": dict(halo),
+                      "halo_rows_total": host.halo_rows(), "forward_ms": fwd_ms,
+                      "busy_ms": busy["busy_ms"], "rel_err": rel_err,
+                      "max_abs_err": abs_err}
+            del plan, a, b
+
+    phase("SCN sharded serving")
+    n = SHARDS[0]
+    t0 = time.perf_counter()
+    layout = engine.pin_halo(scenes, cfg, engine.ShardLayout(n_shards=n))
+    pin_s = time.perf_counter() - t0
+    ctx = engine.ExecutionContext(device=dev)
+    eng = SceneEngine(cfg, model, batch=2, ctx=ctx, layout=layout)
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    handles = eng.submit([SceneRequest(i, t) for i, t in enumerate(scenes)])
+    eng.serve()
+    serve_s = time.perf_counter() - t0
+    check(launched_only(), "the sharded wave launched a kernel wrapper")
+    check(len(eng.wave_stats) == 1 and eng.n_compilations == 1,
+          f"{len(eng.wave_stats)} waves, {eng.n_compilations} signatures")
+    notes = eng.wave_stats[0].notes
+    check(notes["plan_shards"] == n and notes["plan_builds"] == 2
+          and notes["halo_rows"] > 0, f"sharded wave notes {notes}")
+    with torch.inference_mode():
+        for h in handles:
+            r = h.result()
+            plan = eng.cache.get_or_build(
+                r.scene, cfg, topology=ctx.topology_key(),
+                builder=engine.build_sharded_scene_plan_host, device=dev,
+                layout=layout)
+            own = engine.apply_unet(model, r.scene.feats, plan,
+                                    device=dev).cpu().numpy()
+            check(np.array_equal(own, r.logits), f"scene {r.rid}: the wave's "
+                  "logits differ from its own sharded forward")
+        _, rel0 = max_err(torch.from_numpy(handles[0].result().logits),
+                          ref.cpu())
+        check(rel0 <= LOGITS_TOL, "the wave's seed 0 logits disagree with "
+              "reference")
+    eng.close()
+    print(f"SCN sharded serving: layout {layout} pinned in {pin_s:.1f} s; "
+          f"a wave of 2 through SceneEngine(layout=) in {serve_s:.2f} s "
+          f"(host plans included), notes {notes}; each scene's logits equal "
+          f"its own sharded forward, seed 0's within {rel0:.3g} of "
+          f"reference; kernel launches {kernel_counts()} [{card}]")
+    out["serving"] = {"pin_s": pin_s, "serve_s": serve_s, "halo": layout.halo,
+                      "notes": notes}
+    out["reference_ms"] = ref_ms
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3393,6 +3801,7 @@ def main() -> int:
     del spec, scenes, served
     fused_entry["streaming"] = scn_stream_path(dev, phase, seed0["model"],
                                                seed0["cfg"])
+    fused_entry["sharded"] = scn_sharded_path(dev, phase, seed0, card)
     fused_entry["training"] = scn_training_path(dev, phase, card, seed0)
     del seed0
     torch.cuda.empty_cache()
@@ -3433,6 +3842,16 @@ def main() -> int:
         arch: dict(r["flash"], launches=r["launches"]["flash_fwd"],
                    prefill_ms=r["prefill_ms"], decode=r["decode"])
         for arch, r in lm10.items() if "flash" in r}
+    # slice 10 part c: Pixtral-12B and SeamlessM4T-medium, each alone
+    part_c = {}
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        part_c[arch] = part_c_path(dev, phase, arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2**30
+        print(f"after the {arch} path: {held:.2f} GiB still allocated")
+        check(held < 1.0, f"the {arch} path's tensors were not freed")
+    results[1]["part_c"] = part_c
     moe_entry["maverick"] = dict(
         lm10[LM10_MOE]["moe_gemm"],
         launches=lm10[LM10_MOE]["launches"]["moe_gemm"])
@@ -3448,6 +3867,7 @@ def main() -> int:
     results[1]["lm_training"] = training
     recurrent["training"] = recurrent_training_path(dev, phase, card)
     results[1]["recurrent"] = recurrent
+    part_c["training"] = part_c_training_path(dev, phase, card)
     phase.end()
 
     print(f"card: {card}")

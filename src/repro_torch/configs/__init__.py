@@ -1,9 +1,9 @@
-"""Arch registry of the port: the decoders it serves so far (four dense,
-two MoE, one hybrid of RG-LRU and local attention, one RWKV).
+"""Arch registry of the port: every config of the JAX package (four dense
+decoders, two MoE, one hybrid of RG-LRU and local attention, one RWKV, a
+decoder with a stub vision frontend and an encoder-decoder).
 
 ``get_config(name)`` returns the public config; ``cfg.reduced()`` the
-test size. Pixtral's vision frontend and SeamlessM4T's encoder-decoder
-come with part c of slice 10 (``ROADMAP.md``).
+test size.
 """
 from repro_torch.configs import (  # noqa: F401
     gemma2_2b,
@@ -11,8 +11,10 @@ from repro_torch.configs import (  # noqa: F401
     h2o_danube3_4b,
     llama4_maverick_400b,
     moonshot_v1_16b,
+    pixtral_12b,
     recurrentgemma_9b,
     rwkv6_7b,
+    seamless_m4t_medium,
     stablelm_1_6b,
 )
 from repro_torch.configs.base import (

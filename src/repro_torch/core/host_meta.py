@@ -7,6 +7,10 @@ banked spatial hash: every (voxel, kernel-offset) pair issues one
 ``engine.plan.upload_scene_plan``. Outputs are bit-identical to the JAX
 package's numpy twins (same tables, bitmasks and canonical orders).
 
+``shard_halo_tables_np`` splits a conv's table over contiguous capacity
+shards and lists the halo rows each pair of shards exchanges (the sharded
+scenes of ``engine.shard``).
+
 The streaming half (``StreamMetaState``) patches a LiDAR stream's tables
 from one frame to the next instead of rebuilding them; its patched tables
 equal ``build_cirf_np`` / ``transposed_coir_np`` on the re-packed frame,
@@ -143,6 +147,73 @@ def transposed_coir_np(
     offs = kernel_offsets(kernel_size, centered=False)
     return build_corf_np(coarse_coords, coarse_mask, fine_coords, fine_mask,
                          offs, fine_resolution, stride)
+
+
+def shard_halo_tables_np(
+    indices: np.ndarray,
+    n_shards: int,
+    halo: int = 0,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Split an out-major ``(V, K)`` COIR index block over ``n_shards``
+    contiguous capacity shards: per-shard local index blocks, and the send
+    tables a halo exchange reads (numpy twin of the JAX package's, table
+    for table).
+
+    Shard ``s`` owns global rows ``[s*Vs, (s+1)*Vs)`` (``Vs = V //
+    n_shards``). An output row's receptive field may reference input rows
+    that other shards own, the *halo*. For every (owner ``d``, consumer
+    ``s``) pair the sorted unique global rows ``s`` needs from ``d`` are
+    collected; ``halo`` pads each pair to a fixed budget (0 sizes it to
+    this block's worst pair; a positive budget that a pair overflows
+    raises, so a pinned serving signature never drops rows).
+
+    Returns ``(local_idx, send_rows, n_halo_rows)``:
+
+    * ``local_idx`` ``(S, Vs, K)`` int32: the block in each shard's local
+      buffer ``concat([own rows (Vs), halo rows (S*H)])``: ``[0, Vs)`` its
+      own rows, ``Vs + d*H + j`` the j-th row received from shard ``d``,
+      ``-1`` holes (unchanged);
+    * ``send_rows`` ``(S, S, H)`` int32: ``send_rows[d, s]`` lists the rows
+      shard ``d`` sends shard ``s``, local to ``d``; ``-1`` pads;
+    * ``n_halo_rows``: the real (non-pad) rows that cross shards, what a
+      halo exchange of this conv moves.
+    """
+    idx = np.asarray(indices)
+    V, _ = idx.shape
+    S = int(n_shards)
+    if S < 1 or V % S:
+        raise ValueError(
+            f"capacity {V} not divisible into {S} equal shards")
+    Vs = V // S
+    send_lists: list[list[np.ndarray]] = [[None] * S for _ in range(S)]
+    h_needed = 0
+    for s in range(S):
+        blk = idx[s * Vs:(s + 1) * Vs]
+        rows = np.unique(blk[blk >= 0])
+        remote = rows[(rows < s * Vs) | (rows >= (s + 1) * Vs)]
+        owners = remote // Vs
+        for d in range(S):
+            send_lists[d][s] = remote[owners == d]
+            h_needed = max(h_needed, len(send_lists[d][s]))
+    H = int(halo) if halo else max(h_needed, 1)
+    if h_needed > H:
+        raise ValueError(
+            f"halo budget {H} rows/pair < required {h_needed}; raise the "
+            "ShardLayout halo (or re-pin it from representative scenes)")
+    send_rows = np.full((S, S, H), -1, np.int32)
+    local_idx = np.empty((S, Vs, len(idx[0])), np.int32)
+    n_halo = 0
+    for s in range(S):
+        glob2loc = np.full((V,), -1, np.int32)
+        glob2loc[s * Vs:(s + 1) * Vs] = np.arange(Vs, dtype=np.int32)
+        for d in range(S):
+            rows = send_lists[d][s]
+            n_halo += len(rows)
+            send_rows[d, s, :len(rows)] = (rows - d * Vs).astype(np.int32)
+            glob2loc[rows] = Vs + d * H + np.arange(len(rows), dtype=np.int32)
+        blk = idx[s * Vs:(s + 1) * Vs]
+        local_idx[s] = np.where(blk >= 0, glob2loc[np.maximum(blk, 0)], -1)
+    return local_idx, send_rows, n_halo
 
 
 def downsample_coords_np(

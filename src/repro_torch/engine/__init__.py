@@ -8,7 +8,11 @@ that ``apply_unet`` runs in one pass. ``PlanCache`` memoizes plans by scene
 content, and an ``ExecutionContext`` holds the device, the registry and the
 cache that serving shares. A standalone conv site gets its tiled plan from
 ``conv_plan_for_layer``; a LiDAR stream patches each frame's plan from the
-previous one's through ``StreamPlanState``.
+previous one's through ``StreamPlanState``. A scene too large for one
+device splits its capacity over shards (``engine.shard``:
+``build_sharded_scene_plan_host`` and a ``ShardLayout``, ``pin_halo`` for
+serving); ``apply_unet`` runs a ``ShardedScenePlan`` as a loop over the
+shards, or one shard a process under a context's ``mesh``.
 
 Measured dispatch (``engine.autotune``): a ``CostTable`` of per-backend
 times by shape signature, which plan builds consult before SPADE's
@@ -51,6 +55,7 @@ from repro_torch.engine.context import (
     ExecutionContext,
     current_context,
     default_context,
+    mesh_axes,
     set_default_context,
     use_context,
 )
@@ -79,12 +84,29 @@ from repro_torch.engine.plan import (
     stack_plans,
     upload_scene_plan,
 )
+from repro_torch.engine.shard import (
+    SHARDED,
+    ShardedBackend,
+    ShardedConvPlan,
+    ShardedLevelPlan,
+    ShardedScenePlan,
+    ShardLayout,
+    apply_unet_sharded,
+    build_sharded_scene_plan,
+    build_sharded_scene_plan_host,
+    pin_halo,
+    upload_sharded_scene_plan,
+)
 
 __all__ = [
-    "AUTO", "DEFAULT_REGISTRY", "REFERENCE", "SSPNNA", "Backend",
+    "AUTO", "DEFAULT_REGISTRY", "REFERENCE", "SHARDED", "SSPNNA", "Backend",
     "BackendRegistry", "ConvPlan", "CostTable", "Dispatch",
     "ExecutionContext", "LevelPlan", "Measurement", "PlanCache", "PlanSpec",
     "ReferenceBackend", "SSpNNABackend", "ScenePlan", "ShapeSig",
+    "ShardLayout", "ShardedBackend", "ShardedConvPlan", "ShardedLevelPlan",
+    "ShardedScenePlan", "apply_unet_sharded", "build_sharded_scene_plan",
+    "build_sharded_scene_plan_host", "mesh_axes", "pin_halo",
+    "upload_sharded_scene_plan",
     "SignatureFamily", "StreamPlanState", "TileArrays",
     "apply_unet", "available_backends", "build_plan_spec",
     "build_scene_plan", "build_scene_plan_host", "build_signature_family",

@@ -5,7 +5,8 @@
 the registry resolves the plan's backend name (``"auto"`` follows the
 planner's decision) to ``reference`` (gather + one product) or ``sspnna``
 (the fused CUDA kernel). ``apply_unet`` walks the SCN U-Net's levels off a
-``ScenePlan``, exactly as the JAX package does. ``use_kernel=False``
+``ScenePlan``, exactly as the JAX package does, and hands a sharded plan
+whole to its scene-level backend (``engine.shard``). ``use_kernel=False``
 (the JAX package's option) runs tiled convs through the pre-gathered plain
 branch instead of the kernel.
 """
@@ -17,6 +18,7 @@ from repro_torch.core.coir import COIR
 from repro_torch.core.sparse_conv import SparseConvParams, masked_batchnorm_relu
 from repro_torch.device import require_device
 from repro_torch.engine.backends import AUTO, DEFAULT_REGISTRY, BackendRegistry
+from repro_torch.engine.context import current_context
 from repro_torch.engine.plan import (
     REFERENCE_DISPATCH,
     ConvPlan,
@@ -128,6 +130,7 @@ def apply_unet(
     registry: BackendRegistry = DEFAULT_REGISTRY,
     use_kernel: bool = True,
     device: str | torch.device = "cuda",
+    ctx=None,
 ) -> torch.Tensor:
     """U-Net forward off an uploaded ScenePlan -> (V, n_classes) logits.
 
@@ -136,7 +139,22 @@ def apply_unet(
     there (``upload_scene_plan(plan, device)``). A wave plan of B scenes
     takes their features one after the other (B x capacity rows) and gives
     their logits so.
+
+    A plan carrying a ``scene_backend`` (``engine.shard.ShardedScenePlan``)
+    runs whole through that backend's ``run_unet``, which reads the mesh
+    of ``ctx`` (default: the ambient context); a ``backend=`` other than
+    ``"auto"`` or that one raises, as in the JAX package.
     """
+    scene_backend = getattr(plan, "scene_backend", None)
+    if scene_backend is not None:
+        if backend not in (AUTO, scene_backend):
+            raise ValueError(
+                f"plan is bound to scene-level backend {scene_backend!r}; "
+                f"backend={backend!r} cannot serve it")
+        if ctx is None:
+            ctx = current_context()
+        return registry.get(scene_backend).run_unet(
+            model, feats, plan, ctx=ctx, device=device)
     dev = require_device(device)
     if plan.device is None or plan.device.type != dev.type:
         raise ValueError(f"plan tables are on {plan.device}, not {dev}: "

@@ -242,7 +242,7 @@ class Backend:
     optionally ``plan_requirements`` (plan attributes that must be non-None
     for ``run`` to serve the plan) and ``fallback`` (the name resolution
     degrades to when ``supports`` says no). ``scene_level`` marks backends
-    that run whole scenes (the sharded one, with a later slice); the
+    that run whole scenes through ``run_unet`` (``engine.shard``'s); the
     profiler skips them.
     """
 
@@ -258,6 +258,11 @@ class Backend:
     def run(self, x, params: SparseConvParams, plan: ConvPlan, *,
             use_kernel: bool = True):
         raise NotImplementedError(f"backend {self.name!r} has no run()")
+
+    def run_unet(self, model, feats, plan, *, ctx, **kw):
+        raise NotImplementedError(
+            f"backend {self.name!r} does not implement scene-level "
+            "run_unet()")
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

@@ -20,8 +20,11 @@ plan cache and the measured-dispatch table (port of
   ``admission``) that ``serving.scene_engine.SceneEngine`` picks up.
 
 A measured-winner flip or a breaker state change invalidates
-``plan_cache`` (hooks wired in ``__post_init__``). A device mesh
-(``mesh=``) comes with the sharded-scene slice and raises until then.
+``plan_cache`` (hooks wired in ``__post_init__``). ``mesh=`` names the
+axis sharded scenes split over and its size: a ``torch.distributed``
+``DeviceMesh`` with ``mesh_dim_names``, whose ``shard_axis`` group runs
+one shard a process (``engine.shard``); ``mesh=None`` runs sharded plans
+as a loop over the shards on ``device``.
 ``current_context()`` resolves the innermost ``use_context(...)`` block,
 else the module default.
 """
@@ -42,11 +45,22 @@ from repro_torch.engine.backends import (
 from repro_torch.engine.plan import PlanCache
 
 
+def mesh_axes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` (``mesh_dim_names`` and
+    its ``shape``); a mesh with unnamed dims raises."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if not names:
+        raise ValueError(f"mesh {mesh!r} names no dims: build it with "
+                         "mesh_dim_names=(..., 'shard', ...)")
+    return dict(zip(names, (int(n) for n in mesh.shape)))
+
+
 @dataclass
 class ExecutionContext:
     """Device + backend registry + plan cache + scheduler defaults."""
 
-    #: device mesh sharded scene plans execute on: slice 9 brings it
+    #: device mesh sharded scene plans execute on (one process a shard);
+    #: None runs them as a loop over the shards on ``device``
     mesh: object | None = None
     #: mesh axis the scene capacity axis is sharded over
     shard_axis: str = "shard"
@@ -74,9 +88,7 @@ class ExecutionContext:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh= comes with ROADMAP.md, queue 1, slice 9 (sharded "
-                "scenes)")
+            mesh_axes(self.mesh)  # a mesh without dim names raises here
         # plans cached under a measured decision or a breaker routing must
         # not outlive it: keys rotate (the table's and the board's
         # generations are repr'd into them) and the cache is dropped
@@ -84,10 +96,22 @@ class ExecutionContext:
             self.autotune.add_flip_hook(self.plan_cache.invalidate)
         self.registry.breakers.add_hook(self.plan_cache.invalidate)
 
+    @property
+    def n_shards(self) -> int:
+        """Size of the shard axis (1 without a mesh or without the axis)."""
+        if self.mesh is None:
+            return 1
+        return mesh_axes(self.mesh).get(self.shard_axis, 1)
+
     def topology_key(self) -> str:
-        """The execution topology mixed into plan-cache keys: ``"host"``
-        (one device, no mesh)."""
-        return "host"
+        """The execution topology mixed into plan-cache keys, the JAX
+        package's strings: ``"host"`` without a mesh, else
+        ``"mesh(a=n,...)|shard_axis=..."``, so a plan built for one mesh
+        or shard axis is never served to another."""
+        if self.mesh is None:
+            return "host"
+        axes = ",".join(f"{a}={n}" for a, n in mesh_axes(self.mesh).items())
+        return f"mesh({axes})|shard_axis={self.shard_axis}"
 
     def resolve_backend(self, plan, backend: str = AUTO) -> str:
         """The backend name a call under this context will actually run."""

@@ -326,7 +326,10 @@ class PlanCache:
         if str(dev) not in uploads:
             with entry["dev_lock"]:
                 if str(dev) not in uploads:
-                    uploads[str(dev)] = upload_scene_plan(entry["host"], dev)
+                    host = entry["host"]
+                    upload = getattr(host, "device_upload", None)
+                    uploads[str(dev)] = (upload(dev) if upload is not None
+                                         else upload_scene_plan(host, dev))
         return uploads[str(dev)]
 
     def key_for(self, t: SparseVoxelTensor, cfg, *, topology: str | None = None,

@@ -18,7 +18,10 @@ NEG_INF = -1e30
 # window shorter than a tile with GQA group 2, sq > skv, and D=32 (its
 # 64-byte swizzle). The last two take head dims the kernel is not built
 # for, which the wrapper pads: H2O-Danube-3's D=120 (bf16, a window, GQA
-# group 4) and D=96 (f32, a softcap).
+# group 4) and D=96 (f32, a softcap). The last six are SeamlessM4T-medium's
+# launches (D=64, 16/16 heads, no mask): its encoder (Sq = Skv = 384) and its
+# cross attention over a source longer (Sq < Skv) and shorter (Sq > Skv,
+# where every row still sees every key) than the prompt, f32 and bf16.
 FLASH_CASES = [
     (2, 200, 200, 4, 4, 64, True, None, None, torch.float32),
     (1, 130, 333, 4, 2, 128, True, None, 50.0, torch.float32),
@@ -36,6 +39,12 @@ FLASH_CASES = [
     (2, 100, 100, 2, 1, 32, True, None, 30.0, torch.bfloat16),
     (2, 200, 200, 8, 2, 120, True, 64, None, torch.bfloat16),
     (1, 150, 150, 4, 4, 96, True, None, 30.0, torch.float32),
+    (2, 384, 384, 16, 16, 64, False, None, None, torch.bfloat16),
+    (2, 384, 384, 16, 16, 64, False, None, None, torch.float32),
+    (2, 256, 384, 16, 16, 64, False, None, None, torch.bfloat16),
+    (2, 256, 384, 16, 16, 64, False, None, None, torch.float32),
+    (2, 384, 256, 16, 16, 64, False, None, None, torch.bfloat16),
+    (2, 384, 256, 16, 16, 64, False, None, None, torch.float32),
 ]
 # kernel vs plain version, max |got - want| / max(|want|, 1): f32 sums of D
 # products and of a row's p*v terms in another order than the plain

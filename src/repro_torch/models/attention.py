@@ -53,12 +53,15 @@ def chunked_attention(
 
     The kernel tiles the sequence itself, so ``q_chunk``/``kv_chunk`` only
     keep the JAX signature. It places the queries at the end of the kv
-    sequence, so ``q_offset`` must be ``Skv - Sq`` (0 for a prefill), and it
-    accumulates in f32, the only ``acc_dtype`` it takes.
+    sequence, so where a causal or window mask reads the positions,
+    ``q_offset`` must be ``Skv - Sq`` (0 for a prefill); without a mask
+    the positions change nothing and any offset is taken (the decoder's
+    cross attention, Sq != Skv at offset 0). It accumulates in f32, the
+    only ``acc_dtype`` it takes.
     """
     del q_chunk, kv_chunk
     sq, skv = q.shape[1], k.shape[1]
-    if q_offset != skv - sq:
+    if (causal or window is not None) and q_offset != skv - sq:
         raise ValueError(f"q_offset {q_offset}: the flash kernel places the "
                          f"{sq} queries at the end of {skv} keys")
     if str(acc_dtype).removeprefix("torch.") != "float32":

@@ -5,7 +5,8 @@ mix, ``models.rwkv6``) and ``RGLRU`` layers (the recurrent block and an
 MLP, ``models.rglru``).
 
 Parameters are a plain dict of tensors: ``embed``, ``final_norm``,
-``lm_head`` (untied configs only) and ``layers``, one dict per layer:
+``lm_head`` (untied configs only), ``encoder`` (encoder-decoder configs
+only) and ``layers``, one dict per layer:
 ``ln1``, the mixer (``attn`` {``wq``, ``wk``, ``wv``, ``wo``}, ``tm`` or
 ``rec``), ``ln2``, and the feed-forward (``mlp``; ``moe`` every
 ``moe_layer_period``-th layer of an MoE config; ``cm``, the channel mix,
@@ -41,10 +42,18 @@ advances it on every replay (``serving.engine``). The mode picks the code:
   the backward pass (``torch.utils.checkpoint``), as the JAX package
   wraps its layers in ``jax.checkpoint``.
 
-``lm_loss`` is the next-token cross-entropy the trainer minimises.
+An encoder-decoder config (``cfg.is_encdec``) has ``params["encoder"] =
+{"layers": [...], "final_norm"}``, global attention layers without a cross
+block that ``forward`` runs over ``enc_frames`` (B, S_src, d) with no
+causal mask, and each decoder layer has ``ln_cross`` and ``cross`` (the
+four attention projections), run between the mixer and the feed-forward
+against the encoder's output. A prefill keeps the cross keys and values
+as ``{"ck", "cv"}`` (B, S_src, Hkv, D) in the layer's flat cache dict,
+which decode reads and never writes. A vision config (``cfg.frontend ==
+"vision"``) takes ``frontend_embeds`` (B, P, d), which replace the first
+P token embeddings.
 
-Encoder-decoder and frontend configs raise ``NotImplementedError``: they
-come with part c of slice 10 (``ROADMAP.md``).
+``lm_loss`` is the next-token cross-entropy the trainer minimises.
 """
 from __future__ import annotations
 
@@ -81,19 +90,6 @@ from repro_torch.models.rwkv6 import (
     init_time_mix,
 )
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port has no code for:
-    the encoder-decoder and the vision frontend (ROADMAP.md, queue 1,
-    slice 10 part c)."""
-    why = ("encoder-decoder" if cfg.is_encdec
-           else f"{cfg.frontend} frontend" if cfg.frontend is not None
-           else None)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoders only; {why} configs come "
-            "with part c of slice 10 (ROADMAP.md, queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -103,7 +99,6 @@ def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
     """Random parameters: ``dense_init`` normals drawn from ``generator``
     (seed 0 on the CPU when omitted; a generator on the card draws there,
     which a full-size model needs), norms at 1."""
-    check_supported(cfg)
     dev = require_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     dt, d, hd = cfg.torch_dtype, cfg.d_model, cfg.head_dim
@@ -117,9 +112,14 @@ def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
     params = {"embed": w((cfg.vocab_padded, d), 0.02), "final_norm": ones()}
     if not cfg.tie_embeddings:
         params["lm_head"] = w((d, cfg.vocab_padded))
-    layers = []
-    for i in range(cfg.n_layers):
-        kind = cfg.layer_kind(i)
+
+    def attn():
+        return {"wq": w((d, cfg.n_heads * hd)),
+                "wk": w((d, cfg.n_kv_heads * hd)),
+                "wv": w((d, cfg.n_kv_heads * hd)),
+                "wo": w((cfg.n_heads * hd, d))}
+
+    def layer(i, kind, cross):
         p = {"ln1": ones()}
         if kind == RWKV:
             p["tm"] = init_time_mix(g, d, cfg.n_heads, cfg.rwkv_head_dim, dt,
@@ -128,19 +128,25 @@ def init_lm(cfg: ModelConfig, *, device: str | torch.device = "cuda",
             p["rec"] = init_rglru_block(g, d, cfg.rglru_dim or d,
                                         cfg.conv1d_width, dt, dev)
         elif kind in (GLOBAL, LOCAL):
-            p["attn"] = {"wq": w((d, cfg.n_heads * hd)),
-                         "wk": w((d, cfg.n_kv_heads * hd)),
-                         "wv": w((d, cfg.n_kv_heads * hd)),
-                         "wo": w((cfg.n_heads * hd, d))}
+            p["attn"] = attn()
         else:
             raise ValueError(kind)
+        if cross:
+            p["ln_cross"], p["cross"] = ones(), attn()
         p["ln2"] = ones()
         if kind == RWKV:
             p["cm"] = init_mlp(g, d, cfg.d_ff, "rwkv_cm", dt, dev)
         else:
             p.update(_init_ffn(g, cfg, i, dt, dev))
-        layers.append(p)
-    params["layers"] = layers
+        return p
+
+    params["layers"] = [layer(i, cfg.layer_kind(i), cfg.is_encdec)
+                        for i in range(cfg.n_layers)]
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "layers": [layer(i, GLOBAL, False)
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": ones()}
     return params
 
 
@@ -166,10 +172,11 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
     cycle (RecurrentGemma's 38 layers: 12 cycles of 3, then 2). Every leaf
     keeps its dtype: an MoE router, the RG-LRU's ``w_a``, ``w_x`` and
     ``lam``, and the RWKV time mix's ``w0``, LoRA, ``u`` and ``ln_x`` stay
-    f32 in a bf16 model. The JAX package's decode caches nest a layer's
-    tensors one level deeper than the port's flat layer dicts (module
-    docstring); their tensors are the same."""
-    check_supported(cfg)
+    f32 in a bf16 model. An encoder-decoder tree's ``encoder`` stacks all
+    its layers in ``cycles[0]`` (``rem`` is empty), and its decoder layers
+    carry ``ln_cross`` and ``cross``. The JAX package's decode caches nest a
+    layer's tensors one level deeper than the port's flat layer dicts
+    (module docstring); their tensors are the same."""
     dev = require_device(device)
 
     def conv(node, index=None):
@@ -189,6 +196,13 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = _tensor(tree["lm_head"], dev)
     params["layers"] = layers
+    if cfg.is_encdec:
+        enc = tree["encoder"]
+        stack = enc["cycles"][0]
+        params["encoder"] = {
+            "layers": [conv(stack, i) for i in range(cfg.encoder_layers)]
+                      + [conv(lp) for lp in enc["rem"]],
+            "final_norm": _tensor(enc["final_norm"], dev)}
     return params
 
 
@@ -208,7 +222,7 @@ def _attn_qkv(p, x, cfg: ModelConfig, positions):
 
 
 def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
-                    pos: int, cache_pad: int):
+                    pos: int, cache_pad: int, causal: bool = True):
     b, s, _ = x.shape
     window = cfg.window if kind == LOCAL else None
     new_cache = None
@@ -221,17 +235,17 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
                                      v.to(cache["v"].dtype), pos, ring)
         o = decode_attention(q, ck, cv, pos, ring=ring, window=window,
                              logit_cap=cfg.attn_softcap)
-        new_cache = {"k": ck, "v": cv}
+        new_cache = cache  # written in place (with any cross keys in it)
     else:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         q, k, v = _attn_qkv(p, x, cfg, positions)
         if mode == "train":  # the JAX train mode's jnp loop, differentiable
             o = chunked_softmax_attention(
-                q, k, v, causal=True, window=window,
+                q, k, v, causal=causal, window=window,
                 logit_cap=cfg.attn_softcap, q_chunk=min(512, s),
                 kv_chunk=min(512, s), acc_dtype=cfg.attn_dtype)
         else:
-            o = chunked_attention(q, k, v, causal=True, window=window,
+            o = chunked_attention(q, k, v, causal=causal, window=window,
                                   logit_cap=cfg.attn_softcap,
                                   acc_dtype=cfg.attn_dtype)
         if mode == "prefill":
@@ -244,6 +258,48 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
                 pad = (0, 0, 0, 0, 0, cache_pad)
                 new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
     return o.reshape(b, o.shape[1], -1) @ p["wo"], new_cache
+
+
+def _cross_attention(p, x, enc_out, cfg: ModelConfig, mode: str, cache):
+    """Attention of the decoder's positions over the encoder's output ->
+    (out, new cache): no RoPE, no softcap, no mask. Train and prefill
+    project k and v from ``enc_out`` (B, S_src, d); a prefill keeps them
+    as ``{"ck", "cv"}``. Decode reads ``ck``/``cv`` from the layer's cache
+    and writes nothing."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    new_cache = None
+    if mode == "decode":
+        k, v = cache["ck"], cache["cv"]
+        o = decode_attention(q, k, v, k.shape[1] - 1, ring=False, window=None)
+    else:
+        se = enc_out.shape[1]
+        k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd)
+        v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd)
+        attend = (chunked_softmax_attention if mode == "train"
+                  else chunked_attention)
+        o = attend(q, k, v, causal=False, q_chunk=min(512, s),
+                   kv_chunk=min(512, se))
+        if mode == "prefill":
+            new_cache = {"ck": k, "cv": v}
+    return o.reshape(b, s, -1) @ p["wo"], new_cache
+
+
+def _cross_block(p, x, cfg: ModelConfig, mode: str, cache, enc_out,
+                 new_cache):
+    """The decoder layer's cross block (norm, cross attention, residual),
+    where the layer has one and there is an encoder output (train,
+    prefill) or a cross cache (decode) -> (x, new cache with ``ck``/``cv``
+    merged in)."""
+    if "cross" not in p or (enc_out is None
+                            and (cache is None or "ck" not in cache)):
+        return x, new_cache
+    h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+    o, cross = _cross_attention(p["cross"], h, enc_out, cfg, mode, cache)
+    if cross is not None:
+        new_cache = dict(new_cache or {}, **cross)
+    return x + o, new_cache
 
 
 def _ffn(p, x, cfg: ModelConfig, moe_groups: int | None, train: bool):
@@ -271,9 +327,10 @@ def _write_state(cache: dict, **new) -> dict:
     return cache
 
 
-def _rwkv_layer(p, x, h, cfg: ModelConfig, mode: str, cache):
-    """An RWKV layer after its first norm ``h``: the time mix, then the
-    channel mix, each with its token shift -> (x, new cache, aux)."""
+def _rwkv_layer(p, x, h, cfg: ModelConfig, mode: str, cache, enc_out):
+    """An RWKV layer after its first norm ``h``: the time mix, (a cross
+    block,) then the channel mix, each with its token shift -> (x, new
+    cache, aux)."""
     if mode == "decode":
         o, (x_tm, s) = apply_time_mix_decode(p["tm"], h, cache["x_tm"],
                                              cache["s"], n_heads=cfg.n_heads)
@@ -283,7 +340,7 @@ def _rwkv_layer(p, x, h, cfg: ModelConfig, mode: str, cache):
                          device=h.device)
         o, (x_tm, s) = apply_time_mix(p["tm"], h, torch.zeros_like(h[:, 0]),
                                       s0, n_heads=cfg.n_heads)
-    x = x + o
+    x, cross = _cross_block(p, x + o, cfg, mode, cache, enc_out, None)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if mode == "decode":
         y = apply_rwkv_channel_mix(p["cm"], h, cache["x_cm"][:, None])
@@ -291,7 +348,8 @@ def _rwkv_layer(p, x, h, cfg: ModelConfig, mode: str, cache):
     else:
         shifted = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
         y = apply_rwkv_channel_mix(p["cm"], h, shifted)
-        new_cache = ({"s": s, "x_tm": x_tm.clone(), "x_cm": h[:, -1].clone()}
+        new_cache = ({"s": s, "x_tm": x_tm.clone(), "x_cm": h[:, -1].clone(),
+                      **(cross or {})}
                      if mode == "prefill" else None)
     return x + y, new_cache, {}
 
@@ -313,20 +371,23 @@ def _rglru(p, h, cfg: ModelConfig, mode: str, cache):
 
 def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
                 pos: int = 0, cache_pad: int = 0,
-                moe_groups: int | None = None):
+                moe_groups: int | None = None, enc_out=None,
+                causal: bool = True):
     """Returns (x, new_cache, aux). In decode the new cache is ``cache``,
-    its tensors advanced in place."""
+    its tensors advanced in place. ``mode="encode"`` is a prefill that
+    emits no cache (the encoder's layers outside training)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == RWKV:
-        return _rwkv_layer(p, x, h, cfg, mode, cache)
+        return _rwkv_layer(p, x, h, cfg, mode, cache, enc_out)
     if kind == RGLRU:
         o, new_cache = _rglru(p["rec"], h, cfg, mode, cache)
     elif kind in (GLOBAL, LOCAL):
         o, new_cache = _self_attention(p["attn"], h, cfg, kind, mode, cache,
-                                       pos, cache_pad)
+                                       pos, cache_pad, causal)
     else:
         raise ValueError(kind)
-    x = x + o
+    x, new_cache = _cross_block(p, x + o, cfg, mode, cache, enc_out,
+                                new_cache)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn(p, h, cfg, moe_groups, mode == "train")
     return x + y, new_cache, aux
@@ -336,12 +397,23 @@ def apply_layer(p, x, kind: str, cfg: ModelConfig, mode: str, cache=None,
 # Full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+    """Token embeddings (scaled by sqrt(d) where the config says so); a
+    vision config's ``frontend_embeds`` (B, P, d) then replace the first
+    P positions, cast to the embeddings' dtype. P > S raises, as the JAX
+    package's ``dynamic_update_slice`` refuses it."""
     x = params["embed"][tokens.long()]
     if cfg.scale_embeddings:  # sqrt(d) in f32, cast to the working dtype
         # a 0-dim CPU tensor: read on the host at launch, no device copy
         scale = torch.tensor(np.sqrt(np.float32(cfg.d_model))).to(x.dtype)
         x = x * scale
+    if cfg.frontend == "vision" and frontend_embeds is not None:
+        n = frontend_embeds.shape[1]
+        if n > x.shape[1]:
+            raise ValueError(f"{n} frontend embeddings do not fit "
+                             f"{x.shape[1]} positions")
+        fe = torch.as_tensor(frontend_embeds, device=x.device).to(x.dtype)
+        x = torch.cat([fe, x[:, n:]], dim=1)
     return x
 
 
@@ -379,7 +451,26 @@ def _remat(cfg: ModelConfig, layer):
     return functools.partial(checkpoint, layer, use_reentrant=False, **kw)
 
 
-def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
+def _run_encoder(params, cfg: ModelConfig, frames, mode: str):
+    """frames (B, S_src, d) -> the encoder's output (B, S_src, d): the
+    frames cast to the working dtype, the encoder's layers without a causal
+    mask, its final norm. It follows the outer ``mode``: plain ops under
+    autograd in ``"train"`` (remat per layer under ``cfg.remat``), the
+    flash kernel in a prefill; it emits no cache."""
+    enc = params["encoder"]
+    x = torch.as_tensor(frames, device=enc["final_norm"].device).to(
+        cfg.torch_dtype)
+    layer = functools.partial(apply_layer, causal=False)
+    if cfg.remat and mode == "train":
+        layer = _remat(cfg, layer)
+    for lp in enc["layers"]:
+        x, _, _ = layer(lp, x, GLOBAL, cfg,
+                        "train" if mode == "train" else "encode")
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, frontend_embeds=None,
+            enc_frames=None, mode: str = "train",
             moe_groups: int | None = None, cache_pad: int = 0,
             last_only: bool = False):
     """tokens: (B, S) -> (logits (B, S, Vp) f32, cache or None, aux).
@@ -389,16 +480,23 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     the head to the last position only (logits (B, 1, Vp)): what a prefill
     needs, without the (B, S, Vp) f32 array. ``mode="train"`` runs plain
     ops that autograd differentiates (remat per layer under ``cfg.remat``);
-    ``"prefill"`` runs the kernels and emits the cache.
+    ``"prefill"`` runs the kernels and emits the cache. A vision config
+    takes ``frontend_embeds`` (B, P, d); an encoder-decoder config needs
+    ``enc_frames`` (B, S_src, d), the encoder's input.
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r} is not 'train' or 'prefill'")
-    check_supported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, frontend_embeds)
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             "enc_frames (B, S_src, d)")
+        enc_out = _run_encoder(params, cfg, enc_frames, mode)
     caches = []
     aux_sum: dict = {}
     layer = functools.partial(apply_layer, cache_pad=cache_pad,
-                              moe_groups=moe_groups)
+                              moe_groups=moe_groups, enc_out=enc_out)
     if cfg.remat and mode == "train":
         layer = _remat(cfg, layer)
     for i, lp in enumerate(params["layers"]):
@@ -419,12 +517,13 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
 # Decode
 # ---------------------------------------------------------------------------
 
-def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      src_len: int = 0, *,
                       device: str | torch.device = "cuda") -> dict:
     """Zeroed cache for ``cache_len`` positions (local layers keep at most
     ``window`` slots; recurrent layers keep their state, whatever the
-    length)."""
-    check_supported(cfg)
+    length); an encoder-decoder's layers also hold the cross keys and
+    values of ``src_len`` source positions."""
     dev = require_device(device)
     dt = cfg.torch_dtype
 
@@ -448,6 +547,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
             buf = min(cfg.window, cache_len) if kind == LOCAL else cache_len
             shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
             layers.append({"k": zeros(*shape), "v": zeros(*shape)})
+        if cfg.is_encdec:
+            shape = (batch, src_len, cfg.n_kv_heads, cfg.head_dim)
+            layers[-1].update(ck=zeros(*shape), cv=zeros(*shape))
     return {"layers": layers, "pos": cache_len}
 
 

@@ -38,17 +38,25 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_device
-from repro_torch.models.transformer import check_supported, decode_step, forward
+from repro_torch.models.transformer import decode_step, forward
 from repro_torch.serving.api import AdmissionPolicy, ServeRequest, ServingBase
 from repro_torch.serving.graphs import Graphs
 from repro_torch.serving.scheduler import WaveScheduler
 
 
 def make_prefill(cfg: ModelConfig, cache_pad: int = 0):
-    def prefill(params, tokens):
-        """tokens (B, S) -> (last-position logits (B, Vp) f32, cache)."""
+    def prefill(params, tokens, frontend_embeds=None, enc_frames=None):
+        """tokens (B, S) -> (last-position logits (B, Vp) f32, cache). A
+        vision config takes ``frontend_embeds`` (B, P, d); an
+        encoder-decoder config needs ``enc_frames`` (B, S_src, d), and its
+        cache then holds each layer's cross keys and values."""
+        kw = {}
+        if cfg.frontend == "vision" and frontend_embeds is not None:
+            kw["frontend_embeds"] = frontend_embeds
+        if cfg.is_encdec:
+            kw["enc_frames"] = enc_frames
         logits, cache, _ = forward(params, cfg, tokens, mode="prefill",
-                                   cache_pad=cache_pad, last_only=True)
+                                   cache_pad=cache_pad, last_only=True, **kw)
         return logits[:, -1], cache
 
     return prefill
@@ -92,7 +100,6 @@ class Engine(ServingBase):
                  planner_threads: int = 2,
                  policy: AdmissionPolicy | None = None,
                  faults=None, device: str | torch.device = "cuda"):
-        check_supported(cfg)
         self.device = require_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params lie on {params['embed'].device}, the "

@@ -1,14 +1,13 @@
 """Batched 3D-scene serving: fixed-capacity slots, cached plans, one CUDA
 graph per (capacity bucket, plan signature) (port of
-``repro.serving.scene_engine``; the sharded mode comes with a later
-slice).
+``repro.serving.scene_engine``).
 
 The 3D face of the shared ``serving.scheduler.WaveScheduler``: the host
 packs up to ``batch`` scene requests per wave, builds (or cache-hits) each
 scene's plan, and runs the wave through one U-Net forward. The engine runs
 under an :class:`~repro_torch.engine.context.ExecutionContext` (``ctx=``),
 which owns the device, the plan cache (topology mixed into every key), the
-backend registry and the default admission policy. Two modes:
+backend registry and the default admission policy. Three modes:
 
 * **batched** (default): every scene at the config's capacity; a pinned
   ``PlanSpec`` (``spec=``) fixes the plans' dispatches and tile budgets,
@@ -18,6 +17,14 @@ backend registry and the default admission policy. Two modes:
   over every bucket is shed with reason ``"capacity"``); the plan stage
   re-packs it to that capacity, admission fills each wave from one bucket,
   and the drain scatters the logits back to the request's rows.
+* **sharded** (``layout=pin_halo(rep_scenes, cfg, ShardLayout(...))``):
+  each scene's capacity split over the layout's shards
+  (``engine.shard``). The plan stage builds the per-shard tables; a wave
+  runs each scene's sharded forward eagerly, as a loop over the shards
+  (``ctx.mesh=None``) or one shard a process (a ``ctx.mesh`` whose shard
+  axis has the layout's size), and its ``WaveStats.notes`` count the
+  shards, the plan builds and the halo rows. The pinned halo budget gives
+  every plan one signature; a plan that diverges raises.
 
 On top of the batched mode, ``open_stream()`` / ``serve_stream()`` serve
 LiDAR sweeps: frames submitted through a :class:`StreamHandle` are planned
@@ -76,7 +83,7 @@ from repro_torch.analysis.runtime import ordered_lock
 from repro_torch.core.host_meta import pack_stream_frame_np
 from repro_torch.device import host_array, require_device
 from repro_torch.engine import api as engine_api
-from repro_torch.engine.context import ExecutionContext
+from repro_torch.engine.context import ExecutionContext, mesh_axes
 from repro_torch.engine.plan import (
     REFERENCE,
     PlanCache,
@@ -86,6 +93,7 @@ from repro_torch.engine.plan import (
     plan_signature,
     stack_plans,
 )
+from repro_torch.engine.shard import ShardLayout, build_sharded_scene_plan_host
 from repro_torch.serving.api import AdmissionPolicy, ServeRequest, ServingBase
 from repro_torch.serving.graphs import Graphs
 from repro_torch.serving.scheduler import WaveScheduler
@@ -181,7 +189,9 @@ class SceneEngine(ServingBase):
     ``spec=build_plan_spec(rep_scenes, cfg)`` to serve SPADE's
     reference/SSpNNA mix at pinned tile budgets, or
     ``family=build_signature_family(rep_scenes, cfg)`` for bucketed
-    serving; ``open_stream`` serves LiDAR streams on the batched mode.
+    serving, or ``layout=pin_halo(rep_scenes, cfg, ShardLayout(...))`` for
+    sharded scenes; ``open_stream`` serves LiDAR streams on the batched
+    mode.
     ``use_kernel`` (default on, as ``apply_unet``'s) runs tiled
     convs through the fused kernel. The engine serves on ``ctx.device``
     (the card unless the context says otherwise; without ``ctx`` the
@@ -190,7 +200,8 @@ class SceneEngine(ServingBase):
     """
 
     def __init__(self, cfg, model, batch: int, spec: PlanSpec | None = None,
-                 *, ctx: ExecutionContext | None = None, layout=None,
+                 *, ctx: ExecutionContext | None = None,
+                 layout: ShardLayout | None = None,
                  family: SignatureFamily | None = None,
                  policy: AdmissionPolicy | None = None,
                  backend: str = "auto", use_kernel: bool = True,
@@ -198,10 +209,6 @@ class SceneEngine(ServingBase):
                  order: str = "soar", soar_chunk: int = 512,
                  sync: bool | None = None, depth: int | None = None,
                  planner_threads: int | None = None, faults=None):
-        if layout is not None:
-            raise NotImplementedError(
-                "layout= (sharded scenes) comes with ROADMAP.md, queue 1, "
-                "slice 9")
         if ctx is None:
             ctx = ExecutionContext(
                 plan_cache=PlanCache(plan_cache_size or 128))
@@ -217,8 +224,10 @@ class SceneEngine(ServingBase):
             raise ValueError(
                 "spec= and family= are mutually exclusive: the family "
                 "carries a pinned spec per capacity bucket")
+        if layout is not None:
+            self._check_layout(layout, ctx, spec, family)
         self.cfg, self.model, self.batch, self.spec = cfg, model, batch, spec
-        self.ctx, self.family = ctx, family
+        self.ctx, self.family, self.layout = ctx, family, layout
         self.backend, self.use_kernel = backend, use_kernel
         self.cache = ctx.plan_cache
         self._topology = ctx.topology_key()
@@ -241,6 +250,8 @@ class SceneEngine(ServingBase):
                           plan_tiles=family.spec_for(cap) is not None,
                           order=order, soar_chunk=soar_chunk, **tuning)
                 for cap in family.capacities}
+        elif layout is not None:
+            self._plan_kw = dict(layout=layout)
         else:
             self._plan_kw = dict(spec=spec, plan_tiles=spec is not None,
                                  order=order, soar_chunk=soar_chunk, **tuning)
@@ -263,6 +274,30 @@ class SceneEngine(ServingBase):
             on_idle=self._make_idle_hook(ctx),
             faults=faults,
             on_wave_error=self._on_wave_error)
+
+    @staticmethod
+    def _check_layout(layout: ShardLayout, ctx, spec, family) -> None:
+        """The JAX package's guards of the sharded mode: no ``spec=`` or
+        ``family=``, a pinned halo budget, and a ctx mesh (if any) whose
+        shard axis has the layout's size."""
+        if family is not None:
+            raise ValueError(
+                "family= and layout= are mutually exclusive: sharded "
+                "serving pins a single halo-budget signature")
+        if spec is not None:
+            raise ValueError(
+                "spec= and layout= are mutually exclusive: sharded "
+                "serving plans its own per-shard metadata")
+        if layout.halo < 1:
+            raise ValueError(
+                "sharded serving needs a pinned halo budget for a single "
+                "signature; pin one with engine.pin_halo")
+        if ctx.mesh is not None:
+            axes = mesh_axes(ctx.mesh)
+            if axes.get(layout.axis) != layout.n_shards:
+                raise ValueError(
+                    f"layout needs mesh axis {layout.axis!r} of size "
+                    f"{layout.n_shards}; ctx mesh has axes {axes}")
 
     # -- introspection -------------------------------------------------------
 
@@ -290,12 +325,12 @@ class SceneEngine(ServingBase):
         patches the cached host plan instead of rebuilding it, falling back
         to a full rebuild when voxel overlap drops below ``min_overlap``.
         Streams need the fixed-capacity batched mode: ``family=`` re-packs
-        rows per bucket, which a per-stream canonical row layout cannot
-        follow."""
-        if self.family is not None:
+        rows per bucket and ``layout=`` pins a sharded signature, which a
+        per-stream canonical row layout cannot follow."""
+        if self.family is not None or self.layout is not None:
             raise ValueError(
                 "open_stream needs the fixed-capacity batched mode; "
-                "family= engines cannot serve streams")
+                "family= and layout= engines cannot serve streams")
         if stream_id is not None and stream_id in self._streams:
             raise ValueError(f"stream {stream_id!r} is already open")
         state = StreamPlanState(
@@ -417,8 +452,10 @@ class SceneEngine(ServingBase):
             scene, cfg, plan_kw = req.scene, self.cfg, self._plan_kw
         key = self.cache.key_for(scene, cfg, topology=self._topology,
                                  **plan_kw)
+        builder = (build_sharded_scene_plan_host if self.layout is not None
+                   else None)
         plan = self.cache.get_or_build(scene, cfg, device=False, key=key,
-                                       **plan_kw)
+                                       builder=builder, **plan_kw)
         req._backends = self._plan_backends(plan)
         return key, plan, scene.feats, None
 
@@ -463,6 +500,8 @@ class SceneEngine(ServingBase):
             else:
                 plans.append(state.device_plan(host))
                 r.plan_info["upload"] = dict(state.last_upload)
+        if self.layout is not None:
+            return self._sharded_wave(reqs, plans, stats)
         if self.family is not None:
             # admission admits one bucket a wave; a mixed wave means the
             # bucket hook was bypassed
@@ -494,7 +533,31 @@ class SceneEngine(ServingBase):
         return engine_api.apply_unet(
             self.model, feats, plan, backend=self.backend,
             registry=self.ctx.registry, use_kernel=self.use_kernel,
-            device=self.device)
+            device=self.device, ctx=self.ctx)
+
+    def _sharded_wave(self, reqs, plans, stats) -> torch.Tensor:
+        """A sharded wave: each scene's sharded forward, eagerly, after
+        checking that its plan has the pinned layout's one signature ->
+        logits ``(batch * capacity, n_classes)`` (zero rows for the
+        wave's empty slots)."""
+        for r, p in zip(reqs, plans):
+            key = ("sharded", p.signature())
+            if not self._buckets:
+                self._buckets[key] = {}
+            elif key not in self._buckets:
+                raise RuntimeError(
+                    f"scene {r.rid}: sharded plan signature diverged from "
+                    "the pinned layout (capacity mismatch or a re-pinned "
+                    "halo budget?); re-pin with engine.pin_halo")
+        stats.notes["plan_shards"] = self.layout.n_shards
+        stats.notes["plan_builds"] = len(plans)
+        stats.notes["halo_rows"] = sum(p.halo_rows() for p in plans)
+        dtype = self.model.head.w.dtype
+        out = [self._apply(torch.as_tensor(r.scene.feats, dtype=dtype,
+                                           device=self.device), p)
+               for r, p in zip(reqs, plans)]
+        out += [torch.zeros_like(out[0])] * (self.batch - len(out))
+        return torch.cat(out)
 
     @torch.inference_mode()
     def run_wave(self, feats: list, plans: list, capacity: int, *,

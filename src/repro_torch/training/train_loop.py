@@ -4,7 +4,9 @@ losses and EF-int8 gradients (port of ``repro.training.train_loop``).
 ``make_train_step(cfg, ...)`` returns ``train_step(state, batch) -> (state,
 metrics)``; the state it returns is new and the one it took is left as it
 was. A batch is ``{"tokens": (B, S+1)}``: inputs ``[:, :-1]``, targets
-``[:, 1:]``, and an optional ``"mask"`` (B, S) of the targets that count.
+``[:, 1:]``, an optional ``"mask"`` (B, S) of the targets that count, and
+a vision config's ``"frontend_embeds"`` or an encoder-decoder's
+``"enc_frames"``, split into microbatches with the tokens.
 Microbatching splits B into ``n_microbatches`` and accumulates their
 gradients in ``accum_dtype``, which bounds activation memory. The gradients
 come from autograd over ``models.transformer.forward(mode="train")``, which
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_device
-from repro_torch.models.transformer import check_supported, forward, init_lm, lm_loss
+from repro_torch.models.transformer import forward, init_lm, lm_loss
 from repro_torch.training import grad_compress
 from repro_torch.training.optimizer import OptHParams, make_optimizer
 from repro_torch.training.tree import tree_leaves, tree_map, tree_map_with_path
@@ -51,13 +53,22 @@ def init_train_state(cfg: ModelConfig, hp: OptHParams | None = None,
 def make_loss_fn(cfg: ModelConfig):
     """-> ``loss_fn(params, batch) -> (total, metrics)``: the next-token
     loss plus the MoE auxiliaries at ``AUX_WEIGHTS``; metrics hold the
-    loss without them and the auxiliaries."""
-    check_supported(cfg)  # vision and encoder-decoder batches: slice 10 part c
+    loss without them and the auxiliaries. A vision config's batch may
+    hold ``frontend_embeds`` (B, P, d); an encoder-decoder's must hold
+    ``enc_frames`` (B, S_src, d), as in the JAX package."""
 
     def loss_fn(params, batch):
-        tokens = torch.as_tensor(batch["tokens"],
-                                 device=params["embed"].device)
-        logits, _, aux = forward(params, cfg, tokens[:, :-1], mode="train")
+        dev = params["embed"].device
+        kw = {}
+        if cfg.frontend == "vision" and "frontend_embeds" in batch:
+            kw["frontend_embeds"] = torch.as_tensor(batch["frontend_embeds"],
+                                                    device=dev)
+        if cfg.is_encdec:
+            kw["enc_frames"] = torch.as_tensor(batch["enc_frames"],
+                                               device=dev)
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        logits, _, aux = forward(params, cfg, tokens[:, :-1], mode="train",
+                                 **kw)
         loss = lm_loss(logits, tokens[:, 1:], cfg, batch.get("mask"))
         total = loss
         for k, w in AUX_WEIGHTS.items():
@@ -94,11 +105,16 @@ def layout_ranks(params, cfg: ModelConfig) -> dict:
     """Each leaf's rank in the JAX package's layout, the one its optimizers'
     weight decay reads: there the layers of every full cycle of
     ``attn_pattern`` are stacked on a leading axis (``params_from_jax``
-    un-stacks them), so their leaves, norms too, count one dim more."""
+    un-stacks them), so their leaves, norms too, count one dim more; so do
+    the leaves of every encoder layer, all of which the JAX package stacks
+    in one cycle."""
     stacked = cfg.n_layers // len(cfg.attn_pattern) * len(cfg.attn_pattern)
     ranks = tree_map(lambda p: p.dim(), params)
     ranks["layers"] = [tree_map(lambda r, e=int(i < stacked): r + e, lr)
                        for i, lr in enumerate(ranks["layers"])]
+    if "encoder" in ranks:
+        enc = ranks["encoder"]
+        enc["layers"] = [tree_map(lambda r: r + 1, lr) for lr in enc["layers"]]
     return ranks
 
 
@@ -107,13 +123,16 @@ def layout_groups(params, cfg: ModelConfig) -> dict:
     ``i*len(pattern)+j``, for ``i`` below the number of full cycles, lies
     in the stack of cycle position ``j``, so each of its leaves gets the
     key ``("cycle", j, path in the layer)``; the layers after the last full
-    cycle and the leaves outside the layers stand alone (``None``)."""
+    cycle and the leaves outside the layers stand alone (``None``). The
+    encoder's layers form one stack: ``("encoder", path in the layer)``."""
     cycle = len(cfg.attn_pattern)
     stacked = cfg.n_layers // cycle * cycle
 
     def key(path, _):
         if path[0] == "layers" and path[1] < stacked:
             return ("cycle", path[1] % cycle) + path[2:]
+        if path[:2] == ("encoder", "layers"):
+            return ("encoder",) + path[3:]
         return None
 
     return tree_map_with_path(key, params)

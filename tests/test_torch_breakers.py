@@ -187,11 +187,11 @@ def test_breaker_board_hooks_fire_on_state_change_only():
 def test_registry_views_chain_and_shadow():
     base = default_registry()
     view = base.view()
-    assert view.names() == base.names() == ("reference", "sspnna")
+    assert view.names() == base.names() == ("reference", "sharded", "sspnna")
     assert "sspnna" in view and "mystery" not in view
     view.register("mystery", _Null("mystery", "reference"))
     assert "mystery" in view and "mystery" not in base
-    assert view.names() == ("mystery", "reference", "sspnna")
+    assert view.names() == ("mystery", "reference", "sharded", "sspnna")
     with pytest.raises(ValueError, match="already registered"):
         view.register("sspnna", _Null("sspnna"))
     shadow = _Null("sspnna", "reference")

@@ -413,29 +413,82 @@ def test_flash_pads_a_head_dim_to_an_instance_without_spills(cuda_device, d,
     assert spills == [0]
 
 
+def _prefill_outputs(cfg, toks, dev):
+    """A reduced prefill's logits and caches, in the order of the
+    comparison: logits, then each layer's k and v."""
+    params = transformer.init_lm(cfg, device=dev)
+    with torch.inference_mode():
+        logits, cache, _ = transformer.forward(
+            params, cfg, toks.to(dev), mode="prefill", cache_pad=4)
+    return [logits] + [c[x] for c in cache["layers"] for x in ("k", "v")]
+
+
+def _attention_f64(q, k, v, *, causal=True, window=None, softcap=None):
+    """The flash kernel's function evaluated in f64 (scores, softmax and
+    the PV product), returned in q's dtype."""
+    from repro_torch.kernels.flash.ref import attention_mask
+
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / d ** 0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = attention_mask(sq, skv, causal=causal, window=window,
+                          device=q.device)
+    p = torch.softmax(s.masked_fill(~mask, -torch.inf), -1).nan_to_num(0.0)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.double())
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _prefill_diagnosis(cfg, toks, i, got, want, bad) -> str:
+    """Which side of a failing prefill comparison departs (ROADMAP queue 3
+    item 10): the CPU side rerun in this process as it is, and once with
+    its attention in f64; the side farther from the f64 run at the failing
+    positions departs."""
+    from repro_torch.models import attention
+
+    again = _prefill_outputs(cfg, toks, "cpu")[i].numpy()
+    plain = attention.flash_attention_bshd
+    attention.flash_attention_bshd = _attention_f64
+    try:
+        exact = _prefill_outputs(cfg, toks, "cpu")[i].numpy()
+    finally:
+        attention.flash_attention_bshd = plain
+    card_err = float(np.abs(got - exact)[bad].max())
+    cpu_err = float(np.abs(want - exact)[bad].max())
+    side = "card" if card_err > cpu_err else "CPU"
+    where = [tuple(int(j) for j in ix) for ix in np.argwhere(bad)[:8]]
+    return (f"output {i} ({'logits' if i == 0 else 'cache'}): {int(bad.sum())}"
+            f" of {bad.size} past 1e-4, at {where}; the CPU rerun in this "
+            f"process {'equals' if np.array_equal(again, want) else 'differs from'}"
+            f" the first CPU run (max |diff| {float(np.abs(again - want).max()):.3g}); "
+            f"against the CPU with f64 attention at those positions: card "
+            f"{card_err:.3g}, CPU {cpu_err:.3g}, so the {side} side departs")
+
+
 @pytest.mark.cuda
 def test_prefill_launches_flash_once_per_layer(cuda_device):
     """A reduced Gemma-2 prefill (window 32 < prompt 80, so the local
     layers mask the window) on the card: one kernel launch per layer, and
-    the logits and caches of the CPU's plain version."""
+    the logits and caches of the CPU's plain version. A failure names the
+    side that departs and where (``_prefill_diagnosis``)."""
     cfg = get_config("gemma2-2b").reduced()
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 80)))
     out = {}
     for dev in ("cpu", cuda_device):
-        params = transformer.init_lm(cfg, device=dev)
         launches = flash_attention.launches
-        with torch.inference_mode():
-            logits, cache, _ = transformer.forward(
-                params, cfg, toks.to(dev), mode="prefill", cache_pad=4)
+        out[str(dev)] = _prefill_outputs(cfg, toks, dev)
         torch.cuda.synchronize()
         n = flash_attention.launches - launches
         assert n == (cfg.n_layers if dev == cuda_device else 0)
-        out[str(dev)] = [logits] + [c[x] for c in cache["layers"]
-                                    for x in ("k", "v")]
-    for got, want in zip(out["cuda"], out["cpu"], strict=True):
-        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
-                                   rtol=1e-4, atol=1e-4)
+    for i, (got, want) in enumerate(zip(out["cuda"], out["cpu"],
+                                        strict=True)):
+        got, want = got.cpu().numpy(), want.numpy()
+        bad = ~np.isclose(got, want, rtol=1e-4, atol=1e-4)
+        if bad.any():
+            pytest.fail(_prefill_diagnosis(cfg, toks, i, got, want, bad))
 
 
 @pytest.mark.cuda
@@ -1113,6 +1166,92 @@ def test_graph_decode_tokens_equal_eager(cuda_device, arch, sync):
                for rid, o in want.items()}
         assert {h.request.rid: h.result().out for h in handles} == cut
         eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["pixtral-12b", "seamless-m4t-medium"])
+def test_vision_and_encdec_graph_decode_tokens_equal_eager(cuda_device, arch):
+    """Two layers at the published widths in bf16 (Seamless: two encoder
+    layers too), served through ``make_prefill`` with the patch embeddings
+    or the source frames and ``Engine.decode``: the step graphs emit the
+    eager steps' tokens over two waves (the second re-fills the graphs'
+    cache, Seamless's cross keys and values too, from another source), and
+    flash launches once a layer in a prefill (Seamless: encoder, self and
+    cross) and never in decode."""
+    from repro_torch.serving.engine import Engine, make_prefill, make_serve_step
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                              encoder_layers=min(get_config(arch)
+                                                 .encoder_layers, 2))
+    batch, prompt_len, max_new = 2, 40, 6
+    params = transformer.init_lm(
+        cfg, device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    prefill, step = make_prefill(cfg, cache_pad=max_new), make_serve_step(cfg)
+    eng = Engine(cfg, params, batch, prompt_len, max_new, device=cuda_device)
+    per_prefill = cfg.encoder_layers + cfg.n_layers * (2 if cfg.is_encdec
+                                                       else 1)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    rng = np.random.default_rng(5)
+    with torch.inference_mode():
+        for wave in range(2):
+            toks = torch.from_numpy(rng.integers(
+                1, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)).to(
+                    cuda_device)
+            rows = 8 if cfg.frontend == "vision" else 24
+            x = torch.randn((batch, rows, cfg.d_model), generator=g,
+                            device=cuda_device, dtype=cfg.torch_dtype)
+            extra = ({"frontend_embeds": x} if cfg.frontend == "vision"
+                     else {"enc_frames": x})
+            launches = flash_attention.launches
+            logits, cache = prefill(params, toks, **extra)
+            assert flash_attention.launches - launches == per_prefill
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            want, c = [tok], cache
+            graph = eng.decode(logits, cache).tolist()
+            launches = flash_attention.launches
+            for _ in range(max_new - 1):
+                tok, _, c = step(params, tok[:, None], c)
+                want.append(tok)
+            assert flash_attention.launches == launches
+            assert graph == torch.stack(want, 1).tolist(), wave
+    assert len(eng.graphs) == max_new - 1
+    assert eng.graphs.replays == 2 * (max_new - 1)
+    assert all(not eng.graphs.launches(i)["flash_fwd"]
+               for i in range(max_new - 1))
+    eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_forward_on_the_card(cuda_device, n_shards):
+    """A scene split over shards, as the loop over them on the card: two
+    runs equal bit for bit, within 1e-3 of the unsharded ``reference``
+    (relative to the largest logit), and no kernel wrapper launched. At
+    capacity 2048 the scene's ~1.9k voxels fill every shard but the last
+    of 4."""
+    cfg = dataclasses.replace(SCN_SERVE_CFG, capacity=2048)
+    coords, feats, _, mask = make_scene(300, cfg.resolution, cfg.capacity)
+    t = SparseVoxelTensor(coords, feats, mask)
+    model = SCNUNet(cfg, device=cuda_device)
+    plan = engine.build_sharded_scene_plan(
+        t, cfg, layout=engine.ShardLayout(n_shards=n_shards),
+        device=cuda_device)
+    assert plan.halo_rows() > 0
+    before = kernel_launches()
+    with torch.inference_mode():
+        a = engine.apply_unet(model, t.feats, plan, device=cuda_device)
+        b = engine.apply_unet(model, t.feats, plan, device=cuda_device)
+        ref = engine.apply_unet(
+            model, t.feats,
+            engine.build_scene_plan(t, cfg, plan_tiles=False,
+                                    device=cuda_device),
+            backend="reference", device=cuda_device)
+    torch.cuda.synchronize()
+    assert kernel_launches() == before
+    assert torch.equal(a, b)
+    err = (a - ref).abs().max() / ref.abs().max().clamp(min=1.0)
+    assert float(err) <= 1e-3
 
 
 def kernel_launches() -> tuple[int, int, int, int]:

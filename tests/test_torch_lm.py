@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
@@ -52,11 +53,15 @@ def test_config_matches_jax(name, reduced):
 
 
 def test_registry():
+    """Every config of the JAX package is registered (Pixtral and Seamless
+    came with part c of slice 10); an unknown name raises."""
     assert list_configs() == sorted(ARCHS + [
         "moonshot-v1-16b-a3b", "granite-8b", "h2o-danube-3-4b",
-        "llama4-maverick-400b-a17b", "recurrentgemma-9b", "rwkv6-7b"])
+        "llama4-maverick-400b-a17b", "recurrentgemma-9b", "rwkv6-7b",
+        "pixtral-12b", "seamless-m4t-medium"])
+    assert list_configs() == jax_list_configs()
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("pixtral-12b")
+        get_config("mamba-3b")
 
 
 def test_rms_norm_and_softcap_match_jax():
@@ -257,17 +262,22 @@ def test_init_lm_is_seeded_and_shaped_like_jax():
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(encoder_layers=2), NotImplementedError, "ROADMAP.md"),
-    (dict(frontend="vision"), NotImplementedError, "ROADMAP.md"),
+    (dict(encoder_layers=2), ValueError, "enc_frames"),
+    (dict(frontend="vision"), ValueError, "do not fit"),
     (dict(attn_pattern=("mamba",)), ValueError, "mamba")])
 def test_layers_of_later_slices_raise(change, error, match):
-    """Encoder-decoder and vision configs, which a later slice ports, are
-    refused naming ROADMAP.md; a layer kind that no slice ports is refused
-    too, so none falls through to another kind's layer."""
+    """Encoder-decoder and vision configs are served now
+    (``tests/test_torch_vlm_encdec.py``) and refuse what the JAX package
+    refuses: an encoder-decoder forward without source frames, more patch
+    embeddings than positions. A layer kind that no slice ports is
+    refused at init, so none falls through to another kind's layer."""
     cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(), **change)
     assert isinstance(cfg, ModelConfig)
     with pytest.raises(error, match=match):
-        transformer.init_lm(cfg, device="cpu")
+        params = transformer.init_lm(cfg, device="cpu")
+        fe = torch.zeros((1, 5, cfg.d_model))
+        transformer.forward(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
+                            mode="prefill", frontend_embeds=fe)
 
 
 def test_entry_points_raise_without_a_card():

@@ -115,20 +115,31 @@ def test_config_matches_jax(name, reduced):
     assert ours.param_count() == theirs.param_count()
     assert [ours.layer_kind(i) for i in range(ours.n_layers)] == \
         [theirs.layer_kind(i) for i in range(theirs.n_layers)]
-    transformer.check_supported(ours)
 
 
 @pytest.mark.parametrize("name", ["pixtral-12b", "seamless-m4t-medium"])
 def test_part_c_configs_still_raise(name):
     """Pixtral's vision frontend and SeamlessM4T's encoder-decoder are
-    part c of slice 10: the port refuses them."""
+    served and trained (``tests/test_torch_vlm_encdec.py``); what the JAX
+    package refuses, the port still refuses: more patch embeddings than
+    positions, and an encoder-decoder forward or train batch without its
+    source frames."""
     cfg = _port_config(jax_get_config(name).reduced())
-    with pytest.raises(NotImplementedError, match="part c of slice 10"):
-        transformer.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="part c of slice 10"):
-        transformer.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="part c of slice 10"):
-        train_loop.make_train_step(cfg)
+    params = transformer.init_lm(cfg, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    step = train_loop.make_train_step(cfg)
+    if cfg.is_encdec:
+        with pytest.raises(ValueError, match="enc_frames"):
+            transformer.forward(params, cfg, toks, mode="prefill")
+        with pytest.raises(KeyError, match="enc_frames"):
+            step(train_loop.init_train_state(cfg, params=params,
+                                             device="cpu"),
+                 {"tokens": np.zeros((1, 5), np.int32)})
+    else:
+        fe = torch.zeros((1, cfg.n_frontend_tokens, cfg.d_model))
+        with pytest.raises(ValueError, match="do not fit"):
+            transformer.forward(params, cfg, toks, mode="prefill",
+                                frontend_embeds=fe)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -144,13 +144,14 @@ def test_meta_attributes_match_jax():
 
 def test_later_slices_raise_by_name(reps):
     """What still raises: ``tune_block_n=`` (the CUDA kernels have no
-    N-block) and ``mesh=`` (sharded scenes, slice 9). ``autotune=`` came
+    N-block), and a ``mesh=`` that names no axis (sharded scenes, which
+    came with slice 9, read the shard axis by name). ``autotune=`` came
     with slice 7 and no longer raises."""
     scenes = [s for s, _ in reps]
     with pytest.raises(NotImplementedError, match="no N-block"):
         engine.build_plan_spec(scenes, UNetConfig(**CFG),
                                tune_block_n=lambda *a: 16)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(ValueError, match="names no dims"):
         engine.ExecutionContext(mesh=object())
     table = engine.CostTable(fingerprint="f")
     assert engine.ExecutionContext(autotune=table,
@@ -333,7 +334,8 @@ def test_execution_context_defaults_and_scoping():
     ctx = engine.ExecutionContext(device="cpu")
     assert ctx.topology_key() == "host"
     assert ctx.mesh is None and ctx.sync and ctx.depth == 2
-    assert set(ctx.registry.names()) == {engine.REFERENCE, engine.SSPNNA}
+    assert set(ctx.registry.names()) == {engine.REFERENCE, engine.SHARDED,
+                                         engine.SSPNNA}
     assert ctx.registry is not engine.ExecutionContext().registry
     assert isinstance(ctx.plan_cache, engine.PlanCache)
     assert engine.ExecutionContext().device == "cuda"

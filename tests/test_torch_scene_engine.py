@@ -294,8 +294,10 @@ def test_mixed_bucket_wave_raises(unet):
 def test_later_slices_and_devices_raise(unet):
     _, model = unet
     cfg = UNetConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        SceneEngine(cfg, model, 2, layout=object(), ctx=_ctx())
+    # sharded scenes came with slice 9: a layout without a pinned halo
+    # budget is refused (tests/test_torch_sharded.py serves pinned ones)
+    with pytest.raises(ValueError, match="pinned halo budget"):
+        SceneEngine(cfg, model, 2, layout=engine.ShardLayout(2), ctx=_ctx())
     eng = SceneEngine(cfg, model, 2, ctx=_ctx())
     # streams came with slice 6: they open, and an empty sweep serves
     # nothing (tests/test_torch_streaming.py serves real ones)
