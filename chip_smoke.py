@@ -208,6 +208,21 @@
    AdamW steps, the patch embeddings a batch key) and SeamlessM4T-medium at
    full depth (6 AdamW steps over source frames; a held batch's loss must
    fall), last; no kernel launches in a step.
+25. Runs the distribution layer ("dist", after "LM training") in 2 spawned
+   processes that share the card in a gloo group (``make_mesh((2,),
+   ("model",))``): one Moonshot 16B-A3B MoE layer at its published widths
+   (bf16, weights from seed 0) over 4 groups of 1024 tokens with
+   ``dispatch="a2a"``, each rank holding 2 groups and 32 experts and
+   launching the expert GEMM 3 times; the ranks' outputs, concatenated,
+   against the same layer's ``dispatch="gather"`` in this process (bit
+   for bit), each launch against its plain version and timed beside its
+   bound and ``torch.bmm``, the layer's and the two exchanges' ms; then
+   ``compressed_psum`` of each rank's expert gradients against the ranks'
+   EF-int8 round trips summed in rank order (bit for bit), with its ms and
+   the bytes that crossed; then the StableLM-2 checkpoint of "LM training"
+   restored onto the two ranks with ``ShardingRules(cfg, mesh).
+   state_shardings``, each rank's local shards against the matching slices
+   of the saved leaves (bit for bit), with the seconds it took.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
@@ -220,11 +235,16 @@ import ctypes
 import dataclasses
 import gc
 import json
+import multiprocessing
+import queue
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -358,6 +378,15 @@ ENCDEC_TRAIN_STEPS = 6
 # SCN sharded (slice 9): seed 0's scene split over each of these shard
 # counts, as the loop over shards on the one card
 SHARDS = (2, 4)
+# "LM training" writes its checkpoint here; "dist" restores it, then removes it
+LM_CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+# the "dist" phase (slice 11a): DIST_RANKS processes share the card in a
+# gloo group; one Moonshot MoE layer over DIST_GROUPS groups of
+# DIST_GROUP_TOKENS tokens, each rank holding DIST_GROUPS / DIST_RANKS
+# groups and n_experts / DIST_RANKS experts; times are medians of DIST_REPS
+DIST_RANKS, DIST_GROUPS, DIST_GROUP_TOKENS, DIST_REPS = 2, 4, 1024, 5
+# how long the parent waits for the ranks' results
+DIST_WAIT_S = 600
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2058,11 +2087,10 @@ def lm_training_path(dev: torch.device, phase: Phases, card: str) -> dict:
     depth in bf16 with remat, AdamW with f32 moments, microbatched steps on
     ``TokenStream`` batches (no kernel launches: the train mode runs plain
     ops); an asynchronous checkpoint after step ``LM_CKPT_STEP`` restored
-    onto the card against the live state, bit for bit; a prefill of the
+    onto the card against the live state, bit for bit (and left in
+    ``LM_CKPT_DIR`` for the "dist" phase); a prefill of the
     trained weights through flash against the plain attention; and three
     AdamW steps of reduced Moonshot. Returns numbers for the JSON."""
-    import shutil
-
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels.flash.flash import flash_attention_plain
@@ -2088,7 +2116,7 @@ def lm_training_path(dev: torch.device, phase: Phases, card: str) -> dict:
                                          n_microbatches=LM_TRAIN_MICRO)
     ds = TokenStream(cfg.vocab_size, LM_TRAIN_BATCH, LM_TRAIN_SEQ, seed=0)
     tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    ckpt_dir = LM_CKPT_DIR
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     zero_kernel_counts()
     losses, norms, step_ms, ckpt = [], [], [], {}
@@ -2131,7 +2159,6 @@ def lm_training_path(dev: torch.device, phase: Phases, card: str) -> dict:
     check(man["data_state"] == data_state and man["step"] == LM_CKPT_STEP,
           "the checkpoint's manifest")
     del restored, saved
-    shutil.rmtree(ckpt_dir)
     print(f"checkpoint after step {LM_CKPT_STEP}: save_async returned in "
           f"{ckpt['snapshot_s']:.3f} s (snapshot to host); its thread wrote "
           f"{ckpt['gib']:.2f} GiB while steps {LM_CKPT_STEP + 1}-"
@@ -3717,6 +3744,336 @@ def scn_sharded_path(dev: torch.device, phase: Phases, seed0: dict,
     return out
 
 
+def dist_moe_layer(dev: torch.device):
+    """One Moonshot 16B-A3B MoE layer at its published widths, drawn on the
+    card from seed 0, and its input of ``DIST_GROUPS`` groups of
+    ``DIST_GROUP_TOKENS`` tokens from seed 1: (params, x, apply_moe's
+    keywords). Every rank and the parent draw the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_ARCH)
+    check((cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.moe.top_k,
+           cfg.moe.capacity_factor) == (2048, 1408, 64, 6, 1.25),
+          f"{MOE_ARCH}'s MoE layer is not at its published widths")
+    check(cfg.torch_dtype == torch.bfloat16, "the MoE layer runs in bf16")
+    params = moe.init_moe(torch.Generator(device=dev).manual_seed(0),
+                          cfg.d_model, cfg.d_ff, cfg.moe.n_experts, cfg.act,
+                          cfg.torch_dtype, dev)
+    x = torch.randn((DIST_GROUPS, DIST_GROUP_TOKENS, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(cfg.torch_dtype)
+    kw = dict(top_k=cfg.moe.top_k, act=cfg.act, capacity=moe.moe_capacity(
+        DIST_GROUP_TOKENS, cfg.moe.top_k, cfg.moe.n_experts,
+        cfg.moe.capacity_factor))
+    return params, x, kw
+
+
+def dist_grads(part: dict, rank: int, dev: torch.device) -> dict:
+    """Rank ``rank``'s gradients of a rank's share of the MoE layer (f32,
+    seeded by the rank), the tree ``compressed_psum`` sums."""
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    return {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3
+            for k, v in sorted(part.items())}
+
+
+def dist_rank(rank: int, port: int, card: str, out) -> None:
+    """One rank of the "dist" phase, in a spawned process (the parent holds
+    a CUDA context): its results, or the traceback, go to ``out``."""
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=DIST_RANKS, rank=rank)
+        try:
+            res = dist_rank_body(rank, card)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, res, None))
+    except Exception:
+        out.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def dist_rank_body(rank: int, card: str) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import ShardingRules, compressed_psum, expert_all_to_all
+    from repro_torch.dist.compat import make_mesh
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref, moe_gemm_tol
+    from repro_torch.models import moe
+    from repro_torch.training import checkpoint, grad_compress, train_loop
+    from repro_torch.training.optimizer import OptHParams
+    from repro_torch.training.tree import tree_leaves, tree_leaves_with_path
+
+    dev = torch.device(DEVICE)
+    mesh = make_mesh((DIST_RANKS,), ("model",), device=DEVICE)
+    group = mesh.get_group("model")
+
+    def in_turn(fn):
+        """``fn()`` on this rank while the other ranks wait at a barrier,
+        so its timings see the card alone."""
+        got = None
+        for r in range(DIST_RANKS):
+            if r == rank:
+                got = fn()
+                torch.cuda.synchronize()
+            dist.barrier(group=group)
+        return got
+
+    res = {}
+    # -- expert-parallel MoE: the rank's groups and experts of the layer
+    params, x, kw = dist_moe_layer(dev)
+    part, xl = moe.expert_shard(params, x, rank, DIST_RANKS)
+    part = {k: v.clone() for k, v in part.items()}
+    xl = xl.clone()
+    del params, x
+    kernel_gemm, calls = moe.grouped_gemm, []
+
+    def record(xin, w, valid, *, out_dtype=None):
+        got = kernel_gemm(xin, w, valid, out_dtype=out_dtype)
+        calls.append((xin, w, valid, got.dtype))
+        return got
+
+    def layer():
+        return moe.apply_moe(part, xl, mesh=mesh, dispatch="a2a", **kw)
+
+    with torch.inference_mode():
+        zero_kernel_counts()
+        moe.grouped_gemm = record
+        try:
+            y, aux = layer()
+        finally:
+            moe.grouped_gemm = kernel_gemm
+        torch.cuda.synchronize()
+        res["launches"] = kernel_counts()
+        res["out"] = y.view(torch.int16).cpu().numpy()
+        res["aux"] = {k: v.float().cpu().numpy() for k, v in aux.items()}
+        res["layer_ms"] = host_ms(layer, DIST_REPS)
+        e, cap = part["router"].shape[1], kw["capacity"]
+        d = xl.shape[2]
+        block = torch.randn((DIST_GROUPS // DIST_RANKS, e, cap, d),
+                            device=dev).to(xl.dtype)
+        expert_major = torch.randn((DIST_GROUPS, e // DIST_RANKS, cap, d),
+                                   device=dev).to(xl.dtype)
+        res["exchange_ms"] = host_ms(
+            lambda: expert_all_to_all(mesh, block), DIST_REPS)
+        res["inverse_ms"] = host_ms(lambda: expert_all_to_all(
+            mesh, expert_major, split_axis=0, concat_axis=1), DIST_REPS)
+        # what leaves this rank in one exchange: all blocks but its own
+        res["exchange_bytes"] = (block.numel() * block.element_size()
+                                 * (DIST_RANKS - 1) // DIST_RANKS)
+        del block, expert_major
+        names = ("gate", "up", "down")[-len(calls):]
+
+        def check_and_time():
+            errs = []
+            for name, (xin, w, valid, odt) in zip(names, calls):
+                got, want = kernel_vs_plain(
+                    "moe_gemm",
+                    lambda: kernel_gemm(xin, w, valid, out_dtype=odt),
+                    lambda: grouped_gemm_ref(xin, w, valid, odt),
+                    f"rank {rank} a2a expert GEMM ({name})")
+                abs_err, rel_err = max_err(got.float(), want.float())
+                errs.append((name, abs_err, rel_err,
+                             moe_gemm_tol(xin.dtype, odt)))
+                del got, want
+            print(f"dist rank {rank}: every expert-GEMM launch of the a2a "
+                  "layer vs its plain version: " + "; ".join(
+                      f"{n} rel {r:.3g} abs {a:.3g} (tol {t})"
+                      for n, a, r, t in errs), flush=True)
+            check(all(r <= t for _, _, r, t in errs),
+                  f"rank {rank}: an a2a expert-GEMM launch disagrees")
+            rows = {name: gemm_row(xin, w, valid, odt,
+                                   f"dist rank {rank} a2a {name} [{card}]")
+                    for name, (xin, w, valid, odt) in zip(names, calls)}
+            return errs, rows
+
+        res["errs"], res["rows"] = in_turn(check_and_time)
+        calls.clear()
+
+        # -- the EF-int8 sum of each rank's gradients
+        mine = dist_grads(part, rank, dev)
+        summed = compressed_psum(mesh, mine, axis="model")
+        torch.cuda.synchronize()
+        trips = [grad_compress.compress_decompress(
+            dist_grads(part, r, dev),
+            {k: torch.zeros_like(v) for k, v in mine.items()})[0]
+            for r in range(DIST_RANKS)]
+        want = trips[0]
+        for t in trips[1:]:
+            want = {k: want[k] + t[k] for k in want}
+        res["psum_equal"] = all(torch.equal(summed[k], want[k]) for k in want)
+        del trips, want, summed
+        res["psum_ms"] = host_ms(
+            lambda: compressed_psum(mesh, mine, axis="model"), 3)
+        n_blocks = sum(-(-v.numel() // grad_compress.BLOCK)
+                       for v in mine.values())
+        res["psum_elems"] = sum(v.numel() for v in mine.values())
+        # each rank sends its int8 blocks and f32 scales to every other rank
+        res["psum_bytes"] = n_blocks * (grad_compress.BLOCK + 4) * (
+            DIST_RANKS - 1)
+        del mine, part, xl
+
+    # -- elastic restore of "LM training"'s checkpoint onto the ranks
+    ccfg = get_config(LM_TRAIN_ARCH)
+    hp = OptHParams(lr=LM_TRAIN_LR, moment_dtype=torch.float32)
+    template = train_loop.init_train_state(ccfg, hp, device="meta")
+    shardings = ShardingRules(ccfg, mesh).state_shardings(template)
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    restored, man = checkpoint.restore(str(LM_CKPT_DIR), LM_CKPT_STEP,
+                                       template, device=dev,
+                                       shardings=shardings)
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    res["restore_step"] = man["step"]
+    equal, n_sharded, local_bytes, total_bytes = True, 0, 0, 0
+    with np.load(LM_CKPT_DIR / f"step_{LM_CKPT_STEP:08d}" / "arrays.npz") as arrays:
+        for (path, leaf), sh in zip(tree_leaves_with_path(restored),
+                                    tree_leaves(shardings), strict=True):
+            key = "/".join(map(str, path))
+            saved = torch.from_numpy(arrays[key])
+            if man["dtypes"][key] == checkpoint.BF16:
+                saved = saved.view(torch.bfloat16)
+            local = leaf.to_local()
+            (place,) = leaf.placements
+            if place.is_shard():
+                n_sharded += 1
+                saved = saved.chunk(DIST_RANKS, dim=place.dim)[rank]
+            equal &= (local.dtype == saved.dtype
+                      and torch.equal(local.cpu(), saved)
+                      and ("model" in sh.spec) == place.is_shard())
+            local_bytes += local.numel() * local.element_size()
+            total_bytes += saved.numel() * saved.element_size() * (
+                DIST_RANKS if place.is_shard() else 1)
+    res.update(restore_equal=equal, restore_leaves=len(tree_leaves(restored)),
+               restore_sharded=n_sharded, restore_local_gib=local_bytes / 2**30,
+               restore_total_gib=total_bytes / 2**30)
+    return res
+
+
+def dist_path(dev: torch.device, phase: Phases, card: str) -> dict:
+    """Phase "dist": the distribution layer over ``DIST_RANKS`` processes
+    that share the card in a gloo group (the expert-parallel MoE layer, the
+    compressed sum, the elastic restore; ``dist_rank_body``), held against
+    the same MoE layer's gather dispatch in this process. Removes the
+    checkpoint of "LM training" at its end. Returns numbers for the JSON."""
+    from repro_torch.models import moe
+
+    phase("dist")
+    try:
+        params, x, kw = dist_moe_layer(dev)
+        with torch.inference_mode():
+            zero_kernel_counts()
+            want, want_aux = moe.apply_moe(params, x, **kw)
+            torch.cuda.synchronize()
+            gather_launches = kernel_counts()
+            gather_ms = host_ms(lambda: moe.apply_moe(params, x, **kw),
+                                DIST_REPS)
+        want = want.cpu()
+        want_aux = {k: v.float().cpu() for k, v in want_aux.items()}
+        del params, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        out = ctx.Queue()
+        procs = [ctx.Process(target=dist_rank, args=(r, port, card, out))
+                 for r in range(DIST_RANKS)]
+        for p in procs:
+            p.start()
+        results, deadline = {}, time.monotonic() + DIST_WAIT_S
+        try:
+            while len(results) < DIST_RANKS:
+                try:
+                    rank, res, err = out.get(timeout=5)
+                except queue.Empty:
+                    died = {p.pid: p.exitcode for p in procs
+                            if p.exitcode not in (None, 0)}
+                    check(not died, f"a dist rank died: exit codes {died}")
+                    check(time.monotonic() < deadline,
+                          f"the dist ranks gave no result in {DIST_WAIT_S} s")
+                    continue
+                check(err is None, f"dist rank {rank} failed:\n{err}")
+                results[rank] = res
+            for p in procs:
+                p.join(60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+    finally:
+        shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+
+    got = torch.cat([torch.from_numpy(results[r]["out"]).view(torch.bfloat16)
+                     for r in range(DIST_RANKS)])
+    bitwise = torch.equal(got, want)
+    err = norm_err(got, want)
+    n_diff = int((got != want).sum())
+    aux_err = max(norm_err(torch.from_numpy(results[r]["aux"][k]),
+                           want_aux[k])
+                  for r in range(DIST_RANKS) for k in want_aux)
+    launches = [results[r]["launches"] for r in range(DIST_RANKS)]
+    print(f"dist: {MOE_ARCH} MoE layer (64 experts top-6, d_model 2048, d_ff "
+          f"1408, bf16) over {DIST_GROUPS} groups of {DIST_GROUP_TOKENS} "
+          f"tokens, dispatch='a2a' over {DIST_RANKS} processes sharing the "
+          f"card (gloo): launches per rank {launches}; the ranks' outputs "
+          f"against the one-process gather: equal bit for bit {bitwise} "
+          f"({n_diff} of {got.numel()} elements differ, max |d| / max(|want|,"
+          f" 1) {err:.3g}, tol {MOE_BF16_TOL}); aux max |d| {aux_err:.3g}; "
+          f"gather launches {gather_launches['moe_gemm']} [{card}]")
+    check(all(n == {"sspnna_fused": 0, "sspnna_tiles": 0, "flash_fwd": 0,
+                    "moe_gemm": 3} for n in launches),
+          f"a rank's a2a layer launched {launches}, not the expert GEMM 3 "
+          "times")
+    check(err <= MOE_BF16_TOL, "the a2a layer disagrees with the gather")
+    check(aux_err <= 1e-5 and all(torch.equal(
+        torch.from_numpy(results[r]["aux"]["expert_load"]),
+        want_aux["expert_load"]) for r in range(DIST_RANKS)),
+        "the a2a auxiliaries disagree with the gather's")
+    for r in range(DIST_RANKS):
+        res = results[r]
+        print(f"dist rank {r}: a2a layer {res['layer_ms']:.3f} ms (host "
+              f"clock ending in a synchronize, median of {DIST_REPS}; both "
+              f"ranks at once); exchange (G/S, E, cap, d) -> (G, E/S, cap, d) "
+              f"{res['exchange_ms']:.3f} ms, inverse {res['inverse_ms']:.3f} "
+              f"ms ({res['exchange_bytes'] / 2**20:.2f} MiB leave the rank "
+              f"each way, gloo through the host); the one-process gather "
+              f"{gather_ms:.3f} ms [{card}]")
+        print(f"dist rank {r}: compressed_psum of {res['psum_elems']} f32 "
+              f"gradients (its 32 experts and the router) over {DIST_RANKS} "
+              f"ranks: {res['psum_ms']:.3f} ms (median of 3), "
+              f"{res['psum_bytes'] / 2**20:.2f} MiB sent by the rank (int8 "
+              f"blocks and f32 scales), sum equal to the ranks' round trips "
+              f"bit for bit: {res['psum_equal']} [{card}]")
+        print(f"dist rank {r}: restore of the {LM_TRAIN_ARCH} state (step "
+              f"{res['restore_step']}) with ShardingRules.state_shardings on "
+              f"('model',) = ({DIST_RANKS},): {res['restore_s']:.3f} s, "
+              f"{res['restore_sharded']} of {res['restore_leaves']} leaves "
+              f"split, {res['restore_local_gib']:.2f} GiB of "
+              f"{res['restore_total_gib']:.2f} on this rank; local shards "
+              f"equal to the saved slices bit for bit: "
+              f"{res['restore_equal']} [{card}]")
+        check(res["psum_equal"], f"rank {r}: compressed_psum differs from "
+              "the ranks' round trips")
+        check(res["restore_equal"] and res["restore_step"] == LM_CKPT_STEP,
+              f"rank {r}: a restored shard differs from the saved slice")
+        check(res["restore_sharded"] > 0, "the restore split no leaf")
+    return {"launches": [n["moe_gemm"] for n in launches],
+            "bitwise_equal_to_gather": bitwise, "max_err": err,
+            "elements_differing": n_diff, "gather_ms": gather_ms,
+            "ranks": [{k: v for k, v in results[r].items()
+                       if k not in ("out", "aux", "launches")}
+                      for r in range(DIST_RANKS)]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3859,6 +4216,14 @@ def main() -> int:
         "launches", "prefill_ms", "prefill_busy_ms", "decode", "peak_gib")}
         for arch in ("recurrentgemma-9b", "rwkv6-7b")}
     training = lm_training_path(dev, phase, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_dist = dist_path(dev, phase, card)
+    moe_entry["dist"] = moe_dist
+    moe_entry["launches"] += sum(moe_dist["launches"])
+    moe_entry["max_abs_err"] = max(
+        [moe_entry["max_abs_err"]]
+        + [e[1] for r in moe_dist["ranks"] for e in r["errs"]])
     results[1]["training"] = {
         "launches": training["prefill_launches"],
         "train_step_launches": training["step_launches"]["flash_fwd"]}

@@ -70,6 +70,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.device import require_device
+from repro_torch.dist.hints import DP, constrain
 from repro_torch.models.attention import (
     cache_update_decode,
     chunked_attention,
@@ -403,6 +404,9 @@ def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     P positions, cast to the embeddings' dtype. P > S raises, as the JAX
     package's ``dynamic_update_slice`` refuses it."""
     x = params["embed"][tokens.long()]
+    sp = ("model" if cfg.attn_sharding == "sequence" and tokens.shape[1] > 1
+          else None)
+    x = constrain(x, DP, sp, None)
     if cfg.scale_embeddings:  # sqrt(d) in f32, cast to the working dtype
         # a 0-dim CPU tensor: read on the host at launch, no device copy
         scale = torch.tensor(np.sqrt(np.float32(cfg.d_model))).to(x.dtype)
@@ -420,7 +424,8 @@ def _embed(params, cfg: ModelConfig, tokens, frontend_embeds=None):
 def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = softcap((x @ head).float(), cfg.final_softcap)
+    logits = softcap(constrain((x @ head).float(), DP, None, "model"),
+                     cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits

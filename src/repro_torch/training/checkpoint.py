@@ -1,5 +1,5 @@
-"""Checkpoints of a train state: atomic, asynchronous, with the data
-pipeline's state (port of ``repro.training.checkpoint``, one card).
+"""Checkpoints of a train state: atomic, asynchronous, elastic, with the
+data pipeline's state (port of ``repro.training.checkpoint``).
 
 Layout on disk, the JAX package's:
     <dir>/step_<N>/manifest.json     leaf paths, shapes, dtypes, mesh,
@@ -11,14 +11,14 @@ The contract:
     mid-save never leaves a checkpoint that ``latest_step`` names;
   * async: ``save_async`` copies the state to host memory, then writes it
     in a thread while the card keeps stepping; ``wait_for_saves`` joins;
+  * elastic: leaves are saved as whole arrays, and ``restore(...,
+    shardings=)`` places them under any target mesh: each leaf comes back
+    as a ``DTensor`` of which this rank holds its own shard;
   * the data pipeline's state rides along, so a restart resumes the stream
     exactly (no repeated or skipped batches).
 
 numpy has no bfloat16: a bf16 leaf is stored as its 16-bit pattern (int16)
-with ``"bfloat16"`` in the manifest, and restored bit for bit. ``restore``
-places leaves on one device; the JAX package's elastic restore onto
-another mesh comes with the distribution slice (ROADMAP.md, queue 1,
-slice 11).
+with ``"bfloat16"`` in the manifest, and restored bit for bit.
 """
 from __future__ import annotations
 
@@ -31,8 +31,14 @@ import time
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor, Shard
+
 from repro_torch.device import require_device
-from repro_torch.training.tree import tree_leaves_with_path, tree_map
+from repro_torch.training.tree import (
+    tree_leaves,
+    tree_leaves_with_path,
+    tree_map,
+)
 
 BF16 = "bfloat16"
 
@@ -124,25 +130,67 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _local_shard(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``placements``:
+    each ``Shard(d)`` mesh dim cuts dim ``d`` into chunks of ceil(n/size)
+    rows, as a ``DTensor`` lays them out."""
+    coords = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            size, d = mesh.size(i), p.dim
+            step = -(-t.shape[d] // size)
+            t = t.narrow(d, min(coords[i] * step, t.shape[d]),
+                         max(0, min(step, t.shape[d] - coords[i] * step)))
+    return t
+
+
+def _sharding(s):
+    """A target sharding as (mesh, placements): a ``dist.hints.
+    NamedSharding`` (what ``dist.ShardingRules`` gives) or the pair."""
+    return (s.mesh, s.placements) if hasattr(s, "placements") else s
+
+
 def restore(ckpt_dir: str, step: int, template, *,
-            device: str | torch.device = "cuda"):
-    """-> (``template``'s tree with the saved leaves on ``device``, cast to
-    the template's dtypes, manifest). Raises on a leaf of another shape."""
+            device: str | torch.device = "cuda", shardings=None):
+    """-> (``template``'s tree with the saved leaves, cast to the
+    template's dtypes, manifest). Raises on a leaf of another shape.
+
+    Without ``shardings`` every leaf is placed whole on ``device``. With
+    ``shardings``, one target for every leaf or a tree of them matching
+    ``template`` (e.g. ``dist.ShardingRules(cfg, mesh).state_shardings``),
+    each a ``NamedSharding`` or a ``(mesh, placements)`` pair, every leaf
+    comes back as a ``DTensor`` on its mesh: this rank reads the whole leaf
+    and moves only its own shard to ``device``."""
     dev = require_device(device)
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    it = iter(_leaf_paths(template)[0])
+    keys, leaves = _leaf_paths(template)
+    if shardings is None:
+        targets = [None] * len(leaves)
+    elif isinstance(shardings, (dict, list)):
+        targets = [_sharding(s) for s in tree_leaves(shardings)]
+    else:
+        targets = [_sharding(shardings)] * len(leaves)
+    if len(targets) != len(leaves):
+        raise ValueError(f"{len(targets)} shardings for {len(leaves)} leaves")
+    it = iter(zip(keys, targets))
 
     def put(leaf):
-        k = next(it)
+        k, target = next(it)
         t = torch.from_numpy(arrays[k])
         if manifest["dtypes"][k] == BF16:
             t = t.view(torch.bfloat16)
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {k}: {tuple(t.shape)} vs "
                              f"{tuple(leaf.shape)}")
-        return t.to(device=dev, dtype=leaf.dtype)
+        if target is None:
+            return t.to(device=dev, dtype=leaf.dtype)
+        mesh, placements = target
+        local = _local_shard(t, mesh, placements).to(device=dev,
+                                                    dtype=leaf.dtype)
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
 
     with np.load(os.path.join(path, "arrays.npz")) as arrays:
         return tree_map(put, template), manifest

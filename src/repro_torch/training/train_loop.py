@@ -149,7 +149,8 @@ def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
     if grad_shardings is not None:
         raise NotImplementedError(
             "grad_shardings (gradient accumulators sharded over a mesh) come "
-            "with the distribution slice (ROADMAP.md, queue 1, slice 11)")
+            "with the dry run that lowers whole steps (ROADMAP.md, queue 1, "
+            "slice 11b)")
     hp = hp or OptHParams()
     _, opt_update = make_optimizer(cfg.optimizer, hp)
     grad_fn = _value_and_grad(make_loss_fn(cfg))

@@ -25,6 +25,7 @@ from repro_torch.kernels.moe_gemm.ref import (
     moe_gemm_tol,
     random_moe_inputs,
 )
+import _dist_worker
 from conftest import make_shell_scene
 from repro_torch.core import host_meta
 from repro_torch.core.soar import soar_order
@@ -48,7 +49,7 @@ from repro_torch.kernels.sspnna.sspnna import (
     sspnna_tiles_plain,
 )
 from repro_torch.data.tokens import TokenStream
-from repro_torch.models import common, transformer
+from repro_torch.models import common, moe, transformer
 from repro_torch.models.scn import SCNUNet, UNetConfig, segmentation_loss
 from repro_torch.training import checkpoint, train_loop
 from repro_torch.training.optimizer import OptHParams
@@ -1341,3 +1342,71 @@ def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
                                      strict=True):
             assert y.device == x.device and y.dtype == x.dtype, path
             assert torch.equal(x, y), path
+
+
+def _card_moe_case():
+    """A reduced Moonshot MoE layer (f32 numpy; the card side casts the
+    experts and the input to bf16) over 4 groups of 64 tokens."""
+    cfg = get_config("moonshot-v1-16b-a3b").reduced()
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg.d_model,
+                          cfg.d_ff, cfg.moe.n_experts, cfg.act, torch.float32,
+                          torch.device("cpu"))
+    rng = np.random.default_rng(2)
+    return {"params": {k: v.numpy() for k, v in params.items()},
+            "x": rng.normal(size=(4, 64, cfg.d_model)).astype(np.float32),
+            "kw": dict(top_k=cfg.moe.top_k, act=cfg.act,
+                       capacity=moe.moe_capacity(64, cfg.moe.top_k,
+                                                 cfg.moe.n_experts,
+                                                 cfg.moe.capacity_factor))}
+
+
+def _spawn_card(target, args_of_rank, n):
+    """``n`` spawned processes on the card; their results by rank."""
+    results, codes = _dist_worker.spawn(target, args_of_rank, n, 180)
+    assert all(err is None for _, _, err in results), results
+    assert all(c == 0 for c in codes), codes
+    return {rank: res for rank, res, _ in results}
+
+
+def _card_gather(case, device):
+    params = {k: torch.from_numpy(v).to(device).to(torch.bfloat16)
+              for k, v in case["params"].items()}
+    params["router"] = params["router"].float()
+    x = torch.from_numpy(case["x"]).to(device).to(torch.bfloat16)
+    with torch.inference_mode():
+        y, _ = moe.apply_moe(params, x, **case["kw"])
+    torch.cuda.synchronize()
+    return y
+
+
+@pytest.mark.cuda
+def test_a2a_moe_on_two_ranks_sharing_the_card(cuda_device):
+    """Two processes share the card in a gloo group, each with 2 of the 4
+    groups and half the experts: each launches the expert GEMM 3 times, and
+    their outputs, concatenated, equal the one-process gather bit for bit
+    (each expert's rows reach the kernel in the same order)."""
+    case = _card_moe_case()
+    port = _dist_worker.free_port()
+    results = _spawn_card(_dist_worker.card_a2a_moe,
+                          lambda r: (r, port, case), 2)
+    want = _card_gather(case, cuda_device)
+    assert [results[r]["launches"] for r in range(2)] == [3, 3]
+    got = np.concatenate([results[r]["out"] for r in range(2)])
+    assert got.tobytes() == want.contiguous().view(torch.uint8).cpu().numpy(
+        ).tobytes()
+
+
+@pytest.mark.cuda
+def test_expert_all_to_all_on_a_one_rank_nccl_group(cuda_device):
+    """At one rank (an NCCL group on the card) the exchange is the
+    identity and the a2a layer equals the gather bit for bit, launching
+    the expert GEMM 3 times."""
+    case = _card_moe_case()
+    port = _dist_worker.free_port()
+    res = _spawn_card(_dist_worker.card_nccl_one_rank,
+                      lambda r: (port, case), 1)[0]
+    want = _card_gather(case, cuda_device)
+    assert res["identity"]
+    assert res["moe"]["launches"] == 3
+    assert res["moe"]["out"].tobytes() == want.contiguous().view(
+        torch.uint8).cpu().numpy().tobytes()

@@ -139,9 +139,16 @@ def test_a2a_dispatch_raises():
     params = moe.init_moe(torch.Generator().manual_seed(0), 16, 32, 4,
                           "swiglu", torch.float32, torch.device("cpu"))
     x = torch.zeros((1, 4, 16))
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         moe.apply_moe(params, x, top_k=2, capacity=4, act="swiglu",
                       dispatch="a2a")
+
+    class ShardMesh:  # what the port reads of a DeviceMesh
+        mesh_dim_names, shape = ("shard",), (2,)
+
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        moe.apply_moe(params, x, top_k=2, capacity=4, act="swiglu",
+                      mesh=ShardMesh(), dispatch="a2a")
     with pytest.raises(ValueError, match="not one of"):
         moe.apply_moe(params, x, top_k=2, capacity=4, act="swiglu",
                       dispatch="scatter")
