@@ -83,7 +83,7 @@
    replay the ``sspnna`` graph again (1e-4 against the fault-free wave).
    Times a rerouted wave against the ``sspnna`` graph's. Every phase that
    injects no fault requires an empty breaker board and no wave error.
-10. Serves two LiDAR sweeps (``make_lidar_sweep``, seeds 0-1, 4 frames of
+10. Serves two LiDAR sweeps (``make_lidar_sweep``, seeds 0-1, 3 frames of
    ~78.6k voxels at resolution 256, ego step 8) as two streams through
    ``SceneEngine.open_stream`` with a spec pinned from their first frames,
    one frame of each stream a wave, blocking and then pipelined: modes
@@ -104,7 +104,7 @@
    layers, d_model 2304, 8/4 heads of 256, d_ff 9216, vocab 256000, window
    4096, softcaps 50 and 30), bf16, random weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``. An ``Engine`` (batch 2, prompt
-   length 6144, 16 new tokens) serves four ``TokenStream`` prompts in two
+   length 6144, 8 new tokens) serves four ``TokenStream`` prompts in two
    waves, once with ``sync=True`` and once with ``sync=False``: each wave's
    prefill must launch the kernel once per layer, the tokens of both runs
    must be equal, and each wave's last-position logits must match the same
@@ -125,7 +125,7 @@
 15. Drives the MoE LM serving path: Moonshot 16B-A3B at its published widths
    and depth (48 layers, d_model 2048, 16 heads of 128, 64 experts top-6 of
    d_ff 1408, vocab 163840; 27.7 B parameters), bf16, random weights drawn
-   on the card. An ``Engine`` (batch 2, prompt length 4096, 16 new tokens)
+   on the card. An ``Engine`` (batch 2, prompt length 4096, 8 new tokens)
    serves four prompts in two waves, blocking and pipelined: each wave must
    launch flash once per layer in its prefill and the expert GEMM three
    times per layer in its prefill and in each decode step (the steps are
@@ -223,6 +223,22 @@
    restored onto the two ranks with ``ShardingRules(cfg, mesh).
    state_shardings``, each rank's local shards against the matching slices
    of the saved leaves (bit for bit), with the seconds it took.
+26. Runs the static analysis ("analysis", right after the build, before
+   any other profiler session):
+   ``python -m repro_torch.analysis`` with its four passes (lint, locks,
+   plans, and ``hlo``, which launches the fused SSpNNA kernel on a budgeted
+   tile plan of the canonical 16^3 scene and gates its profiler trace, its
+   graph signature and its modeled shared memory) must find nothing; the
+   same conv is held against its plain version, its device kernels
+   listed (no gather or scatter kernel; none but the fused kernel and the
+   output's fill), and the Python copy of the launch geometry
+   (``analysis.hlo_gates.geometry``) held equal to ``launch_geometry``.
+27. Runs the dry run ("dryrun", last) on this machine's CPU: two cells at
+   full width on a fake 16x16 world of 256 ranks (``launch.dryrun.
+   run_cell``): StableLM-2 1.6B x decode_32k and Moonshot 16B-A3B x
+   prefill_32k, the latter reaching the flash and expert-GEMM wrappers'
+   fake launches. Prints each cell's roofline terms, bound, MFU, memory
+   (``fits_80GB``) and seconds; no kernel launches in it.
 
 Each path runs with every launch count set to 0 just before it and read
 just after. Prints each phase's seconds. Exits non-zero on any failure, and
@@ -254,14 +270,18 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet; the card's power limit
-# is printed beside every measurement)
-PEAK_FP32_FLOPS = 67e12
-# the SSpNNA kernels' f32 product is 3xTF32 on the tensor cores: three TF32
-# products (495 TFLOP/s dense) for each f32 one
-PEAK_TF32X3_FLOPS = 495e12 / 3
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
+# published peaks of one H100 SXM (NVIDIA data sheet, in launch/roofline
+# with each kernel's work function; the card's power limit is printed beside
+# every measurement)
+from repro_torch.launch.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS,
+    PEAK_FP32_FLOPS,
+    PEAK_TF32X3_FLOPS,
+    flash_work,
+    moe_gemm_work,
+    sspnna_fused_work,
+    sspnna_tiles_work,
+)
 # cycles a second of torch.cuda._sleep's spin, at most the H100's 1.98 GHz
 # boost clock (a slower clock only spins longer)
 SPIN_HZ = 1.98e9
@@ -290,11 +310,11 @@ RESOLUTION, CAPACITY, POINTS_PER_UNIT = 256, 131072, 2e6
 # SCN streaming: two LiDAR sweeps of STREAM_FRAMES frames at the scene
 # path's resolution and capacity; an ego step of 8 voxels keeps the shift
 # divisible by 2^3 (four levels), so frames after the first are patched
-STREAM_SEEDS, STREAM_FRAMES, STREAM_STEP, STREAM_CHURN = (0, 1), 4, 8, 0.05
+STREAM_SEEDS, STREAM_FRAMES, STREAM_STEP, STREAM_CHURN = (0, 1), 3, 8, 0.05
 DEVICE = "cuda"
 # the LM path: Gemma-2 2B at full width, one engine shape, four prompts of
 # lengths above the 4096 window (left-padded to PROMPT_LEN with token 0)
-LM_ARCH, BATCH, PROMPT_LEN, MAX_NEW = "gemma2-2b", 2, 6144, 16
+LM_ARCH, BATCH, PROMPT_LEN, MAX_NEW = "gemma2-2b", 2, 6144, 8
 PROMPT_LENS = (6144, 5120, 6144, 4500)
 # last-position logits (f32, softcapped at 30) of the kernel's prefill
 # against the same weights with the attention's plain version, max
@@ -511,19 +531,12 @@ def host_ms(fn, reps: int) -> float:
 def sspnna_bound(feats, weights, out_rows, in_rows, local_idx, counts, n_out,
                  peak=PEAK_FP32_FLOPS):
     """Least time (ms) the card could take for one launch's work, and what
-    bounds it: the FLOPs of the pairs this plan holds over the fp32 peak
-    (or ``peak``), against the bytes the function must move (each
-    referenced input row, the weights and the tables read once, the output
-    written once) over the memory rate."""
-    c, n = feats.shape[1], weights.shape[2]
-    live = counts > 0
-    flops = 2.0 * float(counts.sum()) * c * n
-    rows_in = int(torch.unique(in_rows[live]).numel())
-    nbytes = 4.0 * (rows_in * c + weights.numel() + out_rows.numel()
-                    + in_rows.numel() + local_idx.numel() + counts.numel()
-                    + n_out * n)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    bounds it: ``launch.roofline.sspnna_fused_work`` (the FLOPs of the
+    pairs this plan holds, against each referenced input row, the weights
+    and the tables read once and the output written once) at the fp32 peak
+    (or ``peak``) and the memory rate."""
+    return sspnna_fused_work(feats, weights, out_rows, in_rows, local_idx,
+                             counts, n_out).bound(peak)
 
 
 def launch_shape(kernel: str, t, d_o, k, c, n) -> str:
@@ -556,18 +569,11 @@ def to_float32(tree):
 
 
 def flash_bound(q, k, v, causal, window):
-    """Least time (ms) for one attention launch, and what bounds it: 4*D
-    FLOPs per unmasked (q, k) pair and query head over the bf16 dense peak,
-    against Q, K, V read once and O written once over the memory rate."""
-    from repro_torch.kernels.flash.ref import attention_mask
-
-    b, sq, hq, d = q.shape
-    pairs = int(attention_mask(sq, k.shape[1], causal=causal, window=window,
-                               device=q.device).sum())
-    flops = 4.0 * d * pairs * b * hq
-    nbytes = float(q.element_size() * (2 * q.numel() + k.numel() + v.numel()))
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    """Least time (ms) for one attention launch, and what bounds it:
+    ``launch.roofline.flash_work`` (4*D FLOPs per unmasked (q, k) pair and
+    query head at the bf16 dense peak, against Q, K, V read once and O
+    written once)."""
+    return flash_work(q, k, v, causal, window).bound()
 
 
 def flash_row(q, k, v, kw: dict, what: str, reps: int = 5) -> dict:
@@ -931,25 +937,11 @@ def fused_breakdown(calls) -> dict[str, float]:
 
 def tiles_bound(feats, local_idx, weights, peak=PEAK_FP32_FLOPS):
     """Least time (ms) for one ``sspnna_tiles`` launch, and what bounds it:
-    2*C*N FLOPs per pair (non-hole index) over the fp32 peak (or
-    ``peak``), against the
-    bytes the function must move over the memory rate: each (tile, row) of
-    the (T, dI, C) stack that ``local_idx`` references, W and local_idx read
-    once, the (T, dO, N) output written once. Padded slots and the rows of
-    dead tiles are never read, so they are not counted (as for the fused
-    kernel's bound)."""
-    t, d_o, _ = local_idx.shape
-    d_i, c, n = feats.shape[1], feats.shape[2], weights.shape[2]
-    live = local_idx >= 0
-    pairs = int(live.sum())
-    t_index = torch.arange(t, device=local_idx.device).view(t, 1, 1)
-    rows_in = int(torch.unique((t_index * d_i + local_idx)[live]).numel())
-    flops = 2.0 * pairs * c * n
-    nbytes = float(feats.element_size() * (rows_in * c + weights.numel()
-                                           + t * d_o * n)
-                   + 4 * local_idx.numel())
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    ``launch.roofline.sspnna_tiles_work`` (2*C*N FLOPs per pair against
+    the referenced rows of the stack, W and local_idx read once and the
+    output written once) at the fp32 peak (or ``peak``) and the memory
+    rate."""
+    return sspnna_tiles_work(feats, local_idx, weights).bound(peak)
 
 
 def pregathered_path(dev: torch.device, phase: Phases, seed0: dict) -> dict:
@@ -2577,21 +2569,11 @@ def lm_path(dev: torch.device, phase: Phases) -> dict:
     }
 
 def moe_gemm_bound(xin, w, valid, out_dtype):
-    """Least time (ms) for one expert-GEMM launch, and what bounds it: 2*d*f
-    FLOPs per valid row over the peak of the inputs' type, against the
-    valid rows of x, the w of experts with a valid row and the validity
-    read once and all of out written once over the memory rate."""
-    e, c, d = xin.shape
-    f = w.shape[2]
-    rows = int(valid.sum())
-    live = int(valid.any(1).sum())
-    flops = 2.0 * rows * d * f
-    peak = PEAK_BF16_FLOPS if xin.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    out_size = torch.empty((), dtype=out_dtype).element_size()
-    nbytes = float(xin.element_size() * (rows * d + live * d * f)
-                   + valid.numel() + e * c * f * out_size)
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    """Least time (ms) for one expert-GEMM launch, and what bounds it:
+    ``launch.roofline.moe_gemm_work`` (2*d*f FLOPs per valid row at the
+    inputs' peak, against the valid rows of x, the w of experts with a
+    valid row and the validity read once and all of out written once)."""
+    return moe_gemm_work(xin, w, valid, out_dtype).bound()
 
 
 def gemm_row(xin, w, valid, out_dtype, what: str, reps: int = 5) -> dict:
@@ -4074,6 +4056,104 @@ def dist_path(dev: torch.device, phase: Phases, card: str) -> dict:
                       for r in range(DIST_RANKS)]}
 
 
+# the "dryrun" phase's cells (registry names), on the 16x16 production mesh
+DRYRUN_CELLS = (("stablelm-1.6b", "decode_32k"),
+                ("moonshot-v1-16b-a3b", "prefill_32k"))
+
+
+def analysis_path(dev: torch.device, phase: Phases) -> dict:
+    """Phase 26: ``python -m repro_torch.analysis`` (all four passes), then
+    its ``hlo`` pass's fused conv held against its plain version, with its
+    device kernels and the modeled geometry against the launch's."""
+    from repro_torch.analysis.__main__ import (
+        C_IN,
+        C_OUT,
+        FUSED_KERNELS,
+        fused_case,
+    )
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.hlo_gates import (
+        device_kernels,
+        forbidden_ops,
+        geometry,
+        only_kernels,
+    )
+    from repro_torch.kernels.sspnna.sspnna import KERNEL, launch_geometry
+
+    phase("analysis")
+    zero_kernel_counts()
+    n = analysis_main([])
+    check(n == 0, f"python -m repro_torch.analysis found {n} finding(s)")
+    passes_launches = kernel_counts()["sspnna_fused"]
+    case = fused_case(dev)
+    with torch.inference_mode():
+        got, want = kernel_vs_plain("sspnna_fused", case.fused, case.plain,
+                                    "analysis: the hlo pass's fused conv")
+        abs_err, rel_err = max_err(got, want)
+        check(rel_err <= KERNEL_TOL, f"analysis: the fused conv is {rel_err} "
+              f"from its plain version (tol {KERNEL_TOL})")
+        kernels = device_kernels(case.fused)
+    print(f"analysis: fused conv's device kernels {sorted(set(kernels))}")
+    check(any("tile_kernel" in k for k in kernels),
+          "analysis: the profiler traced no sspnna_fused kernel")
+    check(not forbidden_ops(kernels) and not only_kernels(kernels,
+                                                          FUSED_KERNELS),
+          f"analysis: the fused conv ran a kernel it must not: {kernels}")
+    t, d_o, k = tuple(case.local_idx.shape)
+    launch = launch_geometry(KERNEL, t, d_o, k, C_IN, C_OUT)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    model = geometry(t * d_o, C_IN, C_OUT, k, 4, sms)
+    check(all(launch[key] == v for key, v in model.items()),
+          f"analysis: modeled geometry {model} != launch {launch}")
+    launches = kernel_counts()["sspnna_fused"]
+    print(f"analysis: 4 passes clean ({passes_launches} sspnna_fused "
+          f"launches); fused conv T={t} dO={d_o}: max abs {abs_err:.3g} rel "
+          f"{rel_err:.3g} (tol {KERNEL_TOL}); geometry {model} equals the "
+          f"launch's ({sms} SMs); {launches} launches in the phase")
+    return {"launches": launches, "max_abs_err": abs_err, "rel_err": rel_err,
+            "kernels": sorted(set(kernels)), "geometry": model}
+
+
+def dryrun_path(phase: Phases) -> dict:
+    """Phase 27: ``DRYRUN_CELLS`` through ``launch.dryrun.run_cell`` on a
+    fake world of 256 ranks, on this machine's CPU."""
+    from repro_torch.launch.dryrun import run_cell
+
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        phase(f"dryrun {arch} x {shape}")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        r = run_cell(arch, shape, False)
+        secs = time.perf_counter() - t0
+        check(r["status"] == "ok", f"dryrun {arch} x {shape}: {r}")
+        check(not any(kernel_counts().values()),
+              f"dryrun {arch} x {shape} launched kernels: {kernel_counts()}")
+        rf, mem = r["roofline"], r["memory"]
+        fake = rf["coll_breakdown"]["kernels"]
+        if shape.startswith("prefill"):
+            check(fake.get("flash_fwd", {}).get("launches", 0) > 0,
+                  f"dryrun {arch} x {shape} reached no fake flash launch")
+        if "moonshot" in arch:
+            check(fake.get("moe_gemm", {}).get("launches", 0) > 0,
+                  f"dryrun {arch} x {shape} reached no fake expert GEMM")
+        print(f"dryrun {arch} x {shape} x {rf['mesh']}: {secs:.1f} s; "
+              f"compute {rf['compute_s']:.6g} s, memory {rf['memory_s']:.6g} "
+              f"s, collective {rf['collective_s']:.6g} s; bound {rf['bound']}, "
+              f"mfu {rf['mfu']:.4g}; peak {mem['peak_bytes_per_device'] / 1e9:.3f}"
+              f" GB a rank, fits_80GB {mem['fits_80GB']}; fake launches "
+              f"{ {k: v['launches'] for k, v in fake.items()} }")
+        out[f"{arch} x {shape}"] = dict(
+            seconds=secs, fits_80GB=mem["fits_80GB"],
+            peak_bytes_per_device=mem["peak_bytes_per_device"],
+            **{k: rf[k] for k in ("compute_s", "memory_s", "collective_s",
+                                  "bound", "mfu", "flops_per_device",
+                                  "bytes_per_device",
+                                  "coll_bytes_per_device")},
+            fake_launches={k: v["launches"] for k, v in fake.items()})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4097,7 +4177,8 @@ def main() -> int:
                moe_gemm.KERNEL)
     builds = ([(name, ()) for name in kernels]
               + [(sspnna.KERNEL, d) for d in BREAKDOWN_BUILDS.values()])
-    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build
+    # one nvcc per build
+    with ThreadPoolExecutor(len(builds), thread_name_prefix="nvcc") as pool:
         list(pool.map(lambda b: build.build(*b), builds))
     print(f"build: {', '.join(kernels)} for sm_90a, and {len(BREAKDOWN_BUILDS)} "
           f"timing builds of {sspnna.KERNEL}")
@@ -4138,7 +4219,11 @@ def main() -> int:
     check(all(sp == 0 for _, sp in moe_ptxas.values()),
           "an expert-GEMM kernel spills registers")
 
+    analysis = analysis_path(dev, phase)
     fused_entry, seed0 = scn_path(dev, phase)
+    fused_entry["analysis"] = analysis
+    fused_entry["max_abs_err"] = max(fused_entry["max_abs_err"],
+                                     analysis["max_abs_err"])
     fused_entry["ptxas"] = {k: {"registers": r, "spill_bytes": sp}
                             for k, (r, sp) in sorted(sspnna_ptxas.items())}
     results = [fused_entry]
@@ -4233,6 +4318,7 @@ def main() -> int:
     recurrent["training"] = recurrent_training_path(dev, phase, card)
     results[1]["recurrent"] = recurrent
     part_c["training"] = part_c_training_path(dev, phase, card)
+    results[1]["dryrun"] = dryrun_path(phase)
     phase.end()
 
     print(f"card: {card}")

@@ -13,6 +13,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.abstract import any_dtensor, redistribute_for, sharded_call
+
+# a DTensor's groups (dim 0 of expert_idx, slot and table) are independent
+_GROUP_DIMS = {"expert_idx": {0: "groups"}}
+
 
 def plan_capacity(
     expert_loads: np.ndarray,
@@ -61,8 +66,15 @@ def build_dispatch(expert_idx: torch.Tensor, n_experts: int, capacity: int):
     The JAX package scatters every assignment with dropped ones sent out of
     bounds under ``mode="drop"``. Here the dropped ones go to a trash row
     ``E`` that is cut off afterwards: the same table, and no boolean
-    indexing, so nothing waits on the device.
+    indexing, so nothing waits on the device. A ``DTensor`` (the dry run's)
+    is built on each rank's shard of groups (dim 0).
     """
+    if any_dtensor(expert_idx):
+        return sharded_call(build_dispatch, "build_dispatch",
+                            redistribute_for({"expert_idx": expert_idx},
+                                             _GROUP_DIMS),
+                            _GROUP_DIMS, {0: "groups"}, n_experts=n_experts,
+                            capacity=capacity)
     *lead, t, k = expert_idx.shape
     flat = expert_idx.reshape(-1, t * k).long()                # (G, T*k)
     g = flat.shape[0]

@@ -142,6 +142,27 @@ class NamedSharding:
         return placements(self.mesh, self.spec)
 
 
+def splittable(x, dim: int, outer: int):
+    """``x`` ready to have dim ``dim`` split into ``(outer, rest)`` (a
+    model's head split): a ``DTensor`` whose mesh dims cut ``dim`` into a
+    count that does not divide ``outer`` has those mesh dims replicated
+    first (an all-gather, where the JAX program's reshape lets XLA
+    reshard); anything else is returned as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    ways, placements = 1, list(x.placements)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            if outer % (ways * x.device_mesh.size(i)) == 0:
+                ways *= x.device_mesh.size(i)
+            else:
+                placements[i] = Replicate()
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
 def constrain(x, *entries):
     """Apply a per-dimension sharding hint; ``x`` itself when no mesh is
     active. A ``DTensor`` on the active mesh is redistributed to the

@@ -29,10 +29,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.abstract import (
+    any_dtensor,
+    fake_launch,
+    is_abstract,
+    sharded_call,
+)
 from repro_torch.kernels.flash.ref import NEG_INF, attention_mask
 
 KERNEL = "flash_fwd"
 HEAD_DIMS = (32, 64, 128, 256)
+# dims the kernel treats independently, by argument (``abstract.sharded_call``)
+SHARD_DIMS = {"q": {0: "batch", 2: "heads"}, "k": {0: "batch", 2: "heads"},
+              "v": {0: "batch", 2: "heads"}}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -109,9 +118,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
     On CUDA tensors this launches the kernel (and counts the launch in
     ``flash_attention.launches``); on CPU tensors it runs
-    ``flash_attention_plain``. Any other device raises.
+    ``flash_attention_plain``. Any other device raises. Fake or meta
+    tensors and ``DTensor``s take ``kernels.abstract``'s paths: a
+    ``DTensor`` may shard batch and heads (q, k and v alike).
     """
+    kw = {"causal": causal, "window": window, "softcap": softcap}
+    if any_dtensor(q, k, v):
+        return sharded_call(flash_attention, KERNEL, {"q": q, "k": k, "v": v},
+                            SHARD_DIMS, SHARD_DIMS["q"], **kw)
     _check(q, k, v, window, softcap)
+    if is_abstract(q, k, v):
+        from repro_torch.launch.roofline import flash_work
+
+        return fake_launch(KERNEL, flash_work(q, k, v, causal, window),
+                           q.new_empty(q.shape))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap)

@@ -23,10 +23,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.abstract import (
+    any_dtensor,
+    fake_launch,
+    is_abstract,
+    sharded_call,
+)
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 
 KERNEL = "moe_gemm"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# dims the kernel treats independently, by argument (``abstract.sharded_call``)
+SHARD_DIMS = {"xin": {0: "experts", 1: "rows"}, "w": {0: "experts"},
+              "valid": {0: "experts", 1: "rows"}}
 
 # moe_gemm(x, w, valid, out, dtype, out_dtype, e, c, d, f, stream) of
 # csrc/moe_gemm.cu
@@ -72,10 +81,22 @@ def grouped_gemm(xin: torch.Tensor, w: torch.Tensor, valid: torch.Tensor, *,
 
     On CUDA tensors this launches the kernel (and counts the launch in
     ``grouped_gemm.launches``); on CPU tensors it runs ``grouped_gemm_ref``.
-    Any other device raises.
+    Any other device raises. Fake or meta tensors and ``DTensor``s take
+    ``kernels.abstract``'s paths: a ``DTensor`` may shard experts (all
+    three inputs) and rows (``xin`` and ``valid``).
     """
     out_dtype = out_dtype or xin.dtype
+    if any_dtensor(xin, w, valid):
+        return sharded_call(grouped_gemm, KERNEL,
+                            {"xin": xin, "w": w, "valid": valid}, SHARD_DIMS,
+                            SHARD_DIMS["xin"], out_dtype=out_dtype)
     _check(xin, w, valid, out_dtype)
+    if is_abstract(xin, w, valid):
+        from repro_torch.launch.roofline import moe_gemm_work
+
+        return fake_launch(KERNEL, moe_gemm_work(xin, w, valid, out_dtype),
+                           xin.new_empty((*xin.shape[:2], w.shape[2]),
+                                         dtype=out_dtype))
     if xin.device.type == "cpu":
         return grouped_gemm_ref(xin, w, valid, out_dtype)
     if xin.device.type != "cuda":

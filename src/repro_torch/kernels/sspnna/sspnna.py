@@ -29,6 +29,12 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.abstract import (
+    any_dtensor,
+    fake_launch,
+    is_abstract,
+    sharded_call,
+)
 from repro_torch.kernels.sspnna.ref import sspnna_tile_ref
 
 KERNEL = "sspnna_fused"
@@ -37,6 +43,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # sspnna_fused_f32(feats, weights, out_rows, in_rows, local_idx, pair_counts,
 # out, t, d_o, d_i, k, c, n, n_out, stream) of csrc/sspnna_fused.cu
 FUSED_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# dims each kernel treats independently, by argument (``abstract.
+# sharded_call``): the fused kernel's output channels; the tile stack's
+# tiles and output channels
+FUSED_SHARD_DIMS = {"feats": {}, "weights": {2: "channels"}, "out_rows": {},
+                    "in_rows": {}, "local_idx": {}, "pair_counts": {}}
+TILES_SHARD_DIMS = {"feats": {0: "tiles"}, "local_idx": {0: "tiles"},
+                    "weights": {2: "channels"}}
 
 
 @functools.cache
@@ -110,9 +123,22 @@ def sspnna_fused(feats, weights, out_rows, in_rows, local_idx, pair_counts,
 
     On CUDA tensors this launches the kernel (and counts the launch in
     ``sspnna_fused.launches``); on CPU tensors it runs
-    ``sspnna_fused_plain``. Any other device raises.
+    ``sspnna_fused_plain``. Any other device raises. Fake or meta tensors
+    and ``DTensor``s take ``kernels.abstract``'s paths: a ``DTensor`` may
+    shard the weights' output channels only.
     """
+    args = {"feats": feats, "weights": weights, "out_rows": out_rows,
+            "in_rows": in_rows, "local_idx": local_idx,
+            "pair_counts": pair_counts}
+    if any_dtensor(*args.values()):
+        return sharded_call(sspnna_fused, KERNEL, args, FUSED_SHARD_DIMS,
+                            {1: "channels"}, n_out=n_out)
     _check(feats, weights, out_rows, in_rows, local_idx, pair_counts)
+    if is_abstract(*args.values()):
+        from repro_torch.launch.roofline import sspnna_fused_work
+
+        return fake_launch(KERNEL, sspnna_fused_work(**args, n_out=n_out),
+                           feats.new_empty((n_out, weights.shape[2])))
     if feats.device.type == "cpu":
         return sspnna_fused_plain(feats, weights, out_rows, in_rows,
                                   local_idx, pair_counts, n_out=n_out)
@@ -199,9 +225,23 @@ def sspnna_tiles(feats: torch.Tensor, local_idx: torch.Tensor,
     feats (T, dI, C) and weights (K, C, N) float32 or bfloat16 (one dtype);
     local_idx (T, dO, K) int32 in [-1, dI). On CUDA tensors this launches
     the kernel (and counts the launch in ``sspnna_tiles.launches``); on CPU
-    tensors it runs ``sspnna_tiles_plain``. Any other device raises.
+    tensors it runs ``sspnna_tiles_plain``. Any other device raises. Fake
+    or meta tensors and ``DTensor``s take ``kernels.abstract``'s paths: a
+    ``DTensor`` may shard tiles and output channels.
     """
+    if any_dtensor(feats, local_idx, weights):
+        return sharded_call(sspnna_tiles, TILES_KERNEL,
+                            {"feats": feats, "local_idx": local_idx,
+                             "weights": weights}, TILES_SHARD_DIMS,
+                            {0: "tiles", 2: "channels"})
     _check_tiles(feats, local_idx, weights)
+    if is_abstract(feats, local_idx, weights):
+        from repro_torch.launch.roofline import sspnna_tiles_work
+
+        return fake_launch(TILES_KERNEL,
+                           sspnna_tiles_work(feats, local_idx, weights),
+                           feats.new_empty((*local_idx.shape[:2],
+                                            weights.shape[2])))
     if feats.device.type == "cpu":
         return sspnna_tiles_plain(feats, local_idx, weights)
     if feats.device.type != "cuda":

@@ -27,6 +27,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.abstract import (
+    any_dtensor,
+    redistribute_for,
+    sharded_call,
+)
+from repro_torch.kernels.flash.flash import SHARD_DIMS as FLASH_SHARD_DIMS
 from repro_torch.kernels.flash.ops import flash_attention_bshd
 from repro_torch.models.common import softcap as _softcap
 
@@ -57,7 +63,9 @@ def chunked_attention(
     ``q_offset`` must be ``Skv - Sq`` (0 for a prefill); without a mask
     the positions change nothing and any offset is taken (the decoder's
     cross attention, Sq != Skv at offset 0). It accumulates in f32, the
-    only ``acc_dtype`` it takes.
+    only ``acc_dtype`` it takes. ``DTensor`` inputs (the dry run's) are
+    first redistributed to placements the kernel takes (batch and heads
+    shards; a partial sum or any other shard reduced or gathered).
     """
     del q_chunk, kv_chunk
     sq, skv = q.shape[1], k.shape[1]
@@ -67,7 +75,8 @@ def chunked_attention(
     if str(acc_dtype).removeprefix("torch.") != "float32":
         raise ValueError(f"acc_dtype {acc_dtype}: the flash kernel "
                          "accumulates in float32")
-    return flash_attention_bshd(q, k, v, causal=causal, window=window,
+    qkv = redistribute_for({"q": q, "k": k, "v": v}, FLASH_SHARD_DIMS)
+    return flash_attention_bshd(**qkv, causal=causal, window=window,
                                 softcap=logit_cap)
 
 
@@ -116,7 +125,18 @@ def chunked_softmax_attention(
     (max, sum, acc), or, for a local layer whose window leaves most of the
     sequence out, the one kv span the window reaches. A kv chunk that the
     masks hide from every query of the chunk is skipped: it would add
-    exact zeros."""
+    exact zeros. ``DTensor`` inputs (the dry run's) run on each rank's
+    shard of batch rows and heads, as ``decode_attention`` does: the
+    chunk products fold batch and heads into one dim, which ``DTensor``
+    does not propagate when both are sharded."""
+    if any_dtensor(q, k, v):
+        kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+                  q_offset=q_offset, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                  acc_dtype=acc_dtype)
+        return sharded_call(chunked_softmax_attention, "train_attention",
+                            redistribute_for({"q": q, "k": k, "v": v},
+                                             FLASH_SHARD_DIMS),
+                            FLASH_SHARD_DIMS, FLASH_SHARD_DIMS["q"], **kw)
     acc_dtype = getattr(torch, str(acc_dtype).removeprefix("torch."))
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -188,6 +208,11 @@ def init_kv_cache(n_layers, batch, buf_len, n_kv, head_dim, dtype, *,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+_DECODE_SHARD_DIMS = {"q": FLASH_SHARD_DIMS["q"],
+                      "cache_k": FLASH_SHARD_DIMS["k"],
+                      "cache_v": FLASH_SHARD_DIMS["v"]}
+
+
 def cache_update_decode(cache_k, cache_v, k_new, v_new, t: int, ring: bool):
     """Write one token (k_new/v_new: (B, 1, Hkv, D)) at position t (ring:
     slot t % buf) into the (B, S_buf, Hkv, D) caches, in place; returns
@@ -211,6 +236,17 @@ def decode_attention(
     window: int | None = None,
     logit_cap: float | None = None,
 ) -> torch.Tensor:
+    """One query position over the cache -> (B, 1, Hq, D) in q's dtype.
+    ``DTensor`` inputs (the dry run's) run on each rank's shard of batch
+    rows and heads, as the flash kernel does: the einsums below fold batch
+    and heads into one product dim, which ``DTensor`` cannot propagate
+    when both are sharded."""
+    if any_dtensor(q, cache_k, cache_v):
+        args = redistribute_for({"q": q, "cache_k": cache_k,
+                                 "cache_v": cache_v}, _DECODE_SHARD_DIMS)
+        return sharded_call(decode_attention, "decode_attention", args,
+                            _DECODE_SHARD_DIMS, FLASH_SHARD_DIMS["q"], t=t,
+                            ring=ring, window=window, logit_cap=logit_cap)
     b, sbuf, hkv, d = cache_k.shape
     hq = q.shape[2]
     g = hq // hkv

@@ -11,6 +11,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels.abstract import is_abstract
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -49,7 +51,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     d = x.shape[-1]
-    freqs = rope_table(d, theta, x.device)
+    if is_abstract(positions):
+        # fake positions (the dry run's): a table of this fake mode, never
+        # kept across modes by the cache
+        freqs = positions.new_tensor(rope_frequencies(d, theta))
+    else:
+        freqs = rope_table(d, theta, x.device)
     angles = positions[..., None].float() * freqs      # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]               # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]

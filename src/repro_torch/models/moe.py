@@ -39,10 +39,19 @@ import torch.nn.functional as F
 from repro_torch.core.moe_spade import build_dispatch
 from repro_torch.dist.collectives import expert_all_to_all, process_group
 from repro_torch.dist.hints import DP, constrain
+from repro_torch.kernels.abstract import (
+    any_dtensor,
+    redistribute_for,
+    sharded_call,
+)
+from repro_torch.kernels.moe_gemm.moe_gemm import SHARD_DIMS as GEMM_SHARD_DIMS
 from repro_torch.kernels.moe_gemm.ops import grouped_gemm
 from repro_torch.models.common import dense_init
 
 DISPATCH_MODES = ("gather", "a2a")
+# a DTensor combine's inputs: each shards its groups (dim 0) only
+_GROUP_DIMS = {"h": {0: "groups"}, "idx": {0: "groups"},
+               "slot": {0: "groups"}, "gates": {0: "groups"}}
 
 
 def init_moe(generator: torch.Generator, d_model: int, d_ff: int,
@@ -71,9 +80,13 @@ def moe_capacity(tokens_per_group: int, top_k: int, n_experts: int,
 def _expert_product(xin, w, valid, out_dtype, train: bool):
     """``where(valid, xin, 0) @ w[e]`` per expert with f32 sums: the
     kernel, or under ``train`` the JAX package's ``jnp.einsum`` with an f32
-    result as one plain batched product."""
+    result as one plain batched product. ``DTensor`` inputs (the dry
+    run's) go to the kernel on placements it takes (experts and rows
+    shards; the rest gathered)."""
     if not train:
-        return grouped_gemm(xin, w, valid, out_dtype=out_dtype)
+        args = redistribute_for({"xin": xin, "w": w, "valid": valid},
+                                GEMM_SHARD_DIMS)
+        return grouped_gemm(**args, out_dtype=out_dtype)
     x = torch.where(valid[..., None], xin, torch.zeros((), dtype=xin.dtype,
                                                        device=xin.device))
     return torch.bmm(x.float(), w.float()).to(out_dtype)
@@ -190,12 +203,33 @@ def apply_moe(params: dict, x: torch.Tensor, *, top_k: int, capacity: int,
     h = constrain(_experts(params, xin, valid, act, x.dtype, train),
                   "model", DP, None)
     del xin
+    if any_dtensor(h):
+        # a DTensor (the dry run's): each rank combines its own groups from
+        # their rows of every expert, group-major (the other experts' rows
+        # gathered), since a gather by global row has no sharding rule
+        h = h.view(n_experts, g, capacity, d).transpose(0, 1)
+        args = redistribute_for({"h": h, "idx": idx, "slot": slot,
+                                 "gates": gates}, _GROUP_DIMS)
+        out = sharded_call(_combine_groups, "moe_combine", args, _GROUP_DIMS,
+                           {0: "groups"}, dtype=x.dtype)
+        return out, _aux(logits, probs, idx, slot, n_experts)
     # token t of group g, assignment j: row g*cap + slot of expert idx
     lin = (idx * (g * capacity) + slot.clamp(min=0)
            + torch.arange(g, device=x.device)[:, None, None] * capacity)
     out = _combine(h.reshape(n_experts * g * capacity, d), lin, slot, gates,
                    x.dtype)
     return out, _aux(logits, probs, idx, slot, n_experts)
+
+
+def _combine_groups(h, idx, slot, gates, dtype):
+    """``_combine`` on group-major rows ``h`` (G, E, cap, d): token t of
+    group g, assignment j, reads row (g, idx, slot)."""
+    g, n_experts, capacity, d = h.shape
+    lin = (idx * capacity + slot.clamp(min=0)
+           + torch.arange(g, device=h.device)[:, None, None]
+           * (n_experts * capacity))
+    return _combine(h.reshape(g * n_experts * capacity, d), lin, slot, gates,
+                    dtype)
 
 
 def _apply_moe_a2a(params, x, top_k, capacity, act, group, train):

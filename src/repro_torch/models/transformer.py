@@ -62,6 +62,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -70,7 +71,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import GLOBAL, LOCAL, RGLRU, RWKV, ModelConfig
 from repro_torch.device import require_device
-from repro_torch.dist.hints import DP, constrain
+from repro_torch.dist.hints import DP, constrain, splittable
 from repro_torch.models.attention import (
     cache_update_decode,
     chunked_attention,
@@ -214,9 +215,11 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *,
 def _attn_qkv(p, x, cfg: ModelConfig, positions):
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = splittable(x @ p["wq"], -1, cfg.n_heads).reshape(b, s, cfg.n_heads, hd)
+    k = splittable(x @ p["wk"], -1, cfg.n_kv_heads).reshape(
+        b, s, cfg.n_kv_heads, hd)
+    v = splittable(x @ p["wv"], -1, cfg.n_kv_heads).reshape(
+        b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -255,9 +258,11 @@ def _self_attention(p, x, cfg: ModelConfig, kind: str, mode: str, cache,
                 shift = (s - cfg.window) % cfg.window
                 new_cache = {"k": torch.roll(k[:, -cfg.window:], shift, 1),
                              "v": torch.roll(v[:, -cfg.window:], shift, 1)}
-            else:
+            elif cache_pad:
                 pad = (0, 0, 0, 0, 0, cache_pad)
                 new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+            else:   # k and v are this call's own tensors: no copy
+                new_cache = {"k": k, "v": v}
     return o.reshape(b, o.shape[1], -1) @ p["wo"], new_cache
 
 
@@ -269,15 +274,17 @@ def _cross_attention(p, x, enc_out, cfg: ModelConfig, mode: str, cache):
     and writes nothing."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    q = splittable(x @ p["wq"], -1, cfg.n_heads).reshape(b, s, cfg.n_heads, hd)
     new_cache = None
     if mode == "decode":
         k, v = cache["ck"], cache["cv"]
         o = decode_attention(q, k, v, k.shape[1] - 1, ring=False, window=None)
     else:
         se = enc_out.shape[1]
-        k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd)
-        v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd)
+        k = splittable(enc_out @ p["wk"], -1, cfg.n_kv_heads).reshape(
+            b, se, cfg.n_kv_heads, hd)
+        v = splittable(enc_out @ p["wv"], -1, cfg.n_kv_heads).reshape(
+            b, se, cfg.n_kv_heads, hd)
         attend = (chunked_softmax_attention if mode == "train"
                   else chunked_attention)
         o = attend(q, k, v, causal=False, q_chunk=min(512, s),
@@ -427,7 +434,11 @@ def _logits(params, cfg: ModelConfig, x):
     logits = softcap(constrain((x @ head).float(), DP, None, "model"),
                      cfg.final_softcap)
     if cfg.vocab_padded != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+        if isinstance(logits, DTensor):  # no sharding rule for fill_
+            cols = torch.arange(logits.shape[-1], device=logits.device)
+            logits = torch.where(cols >= cfg.vocab_size, -1e30, logits)
+        else:
+            logits[..., cfg.vocab_size:] = -1e30
     return logits
 
 
@@ -581,12 +592,21 @@ def lm_loss(logits, targets, cfg: ModelConfig, mask=None):
     The JAX package's: a max-shifted logsumexp, the target's logit, and the
     mean over the mask (at least 1). A gather picks the target's logit
     where the JAX package contracts with a one-hot (a vocab-sharding
-    choice): the same value without a second (B, S, V) array.
+    choice): the same value without a second (B, S, V) array. Logits that
+    are a ``DTensor`` (the dry run's, vocab sharded over ``"model"``) take
+    the JAX package's one-hot form, a sum over the sharded vocab, since
+    ``DTensor``'s gather over a sharded dim fails (its masked-partial
+    rule indexes a 3-d tensor with a 2-d mask).
     """
     del cfg  # the padded vocab's logits are already -1e30
     m = logits.amax(-1, keepdim=True)
     lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = targets.long()[..., None] == vocab
+        tgt = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
     ll = tgt - lse
     mask = (torch.ones_like(ll) if mask is None
             else torch.as_tensor(mask, device=ll.device).float())

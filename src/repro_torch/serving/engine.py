@@ -35,6 +35,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_device
@@ -62,11 +63,23 @@ def make_prefill(cfg: ModelConfig, cache_pad: int = 0):
     return prefill
 
 
+def _whole_vocab(last):
+    """Last-position logits (B, V) with the vocab whole on every rank: a
+    ``DTensor`` (the dry run's) has no rule for an argmax over a sharded
+    dim, so its vocab shards are gathered first."""
+    if not isinstance(last, DTensor):
+        return last
+    return last.redistribute(last.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+        for p in last.placements])
+
+
 def make_serve_step(cfg: ModelConfig, moe_groups: int | None = None):
     def serve_step(params, token, cache):
         logits, cache = decode_step(params, cfg, token, cache,
                                     moe_groups=moe_groups)
-        next_tok = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)
+        next_tok = torch.argmax(_whole_vocab(logits[:, -1, : cfg.vocab_size]),
+                                dim=-1)
         return next_tok.to(torch.int32), logits[:, -1], cache
 
     return serve_step

@@ -23,6 +23,7 @@ leaves of one stack (``layout_groups``).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_device
@@ -138,6 +139,33 @@ def layout_groups(params, cfg: ModelConfig) -> dict:
     return tree_map_with_path(key, params)
 
 
+def _place(x: torch.Tensor, sharding) -> DTensor:
+    """``x`` on ``sharding`` (a ``dist.hints.NamedSharding``): a
+    ``DTensor`` is redistributed; a plain tensor is taken as this rank's
+    whole, replicated value and sliced to its shard (no traffic)."""
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, sharding.mesh,
+                               [Replicate()] * sharding.mesh.ndim,
+                               run_check=False)
+    return x.redistribute(sharding.mesh, sharding.placements)
+
+
+def constrain_grads(tree, shardings):
+    """The JAX step's ``with_sharding_constraint`` on a gradient tree:
+    each leaf ``_place``d on its sharding; values stay as they are."""
+    return tree_map(_place, tree, shardings)
+
+
+def _like(x: DTensor, p: torch.Tensor) -> torch.Tensor:
+    """An accumulated gradient in its parameter's layout: the parameter's
+    placements, or for a plain parameter the whole value (an all-gather
+    of the shards)."""
+    if isinstance(p, DTensor):
+        return x.redistribute(p.device_mesh, p.placements)
+    return x.redistribute(x.device_mesh,
+                          [Replicate()] * x.device_mesh.ndim).to_local()
+
+
 def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
                     n_microbatches: int = 1, compress_grads: bool = False,
                     grad_shardings=None, accum_dtype=torch.float32):
@@ -145,12 +173,15 @@ def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
     ``loss`` (with microbatches, the mean of the microbatches' totals, as
     in the JAX package), the MoE auxiliaries and ``grad_norm``. A batch
     whose rows ``n_microbatches`` does not divide raises ``ValueError``, as
-    the JAX step's reshape does."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings (gradient accumulators sharded over a mesh) come "
-            "with the dry run that lowers whole steps (ROADMAP.md, queue 1, "
-            "slice 11b)")
+    the JAX step's reshape does.
+
+    ``grad_shardings``, a tree of ``NamedSharding`` matching the params,
+    places the microbatch gradient accumulator (``constrain_grads``), so a
+    gradient reduction becomes a per-shard reduce-scatter rather than a
+    replicated all-reduce (the JAX package's ``with_sharding_constraint``
+    on it); the summed gradients go back to the parameters' layout before
+    the update. Values stay as they are. Without microbatches there is no
+    accumulator, and the tree is unused, as in the JAX package."""
     hp = hp or OptHParams()
     _, opt_update = make_optimizer(cfg.optimizer, hp)
     grad_fn = _value_and_grad(make_loss_fn(cfg))
@@ -169,18 +200,25 @@ def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
             def split(x, i):
                 x = torch.as_tensor(x)
                 b = x.shape[0] // n_microbatches
-                return x[i * b:(i + 1) * b]
+                mb = x[i * b:(i + 1) * b]
+                if isinstance(x, DTensor):
+                    # a slice of a sharded batch comes back whole on every
+                    # rank (an all-gather): shard it again as the batch is
+                    mb = mb.redistribute(x.device_mesh, x.placements)
+                return mb
 
             grads, msum = None, {}
             for i in range(n_microbatches):
                 mb = {k: split(v, i) for k, v in batch.items()}
                 (total, metrics), g = grad_fn(params, mb)
                 with torch.no_grad():
+                    g = tree_map(lambda x: x.to(accum_dtype), g)
+                    if grad_shardings is not None:
+                        g = constrain_grads(g, grad_shardings)
                     if grads is None:
-                        grads = tree_map(lambda x: x.to(accum_dtype), g)
+                        grads = g
                     else:
-                        grads = tree_map(lambda a, x: a.add_(x.to(accum_dtype)),
-                                         grads, g)
+                        grads = tree_map(lambda a, x: a.add_(x), grads, g)
                 del g
                 metrics = dict(metrics, loss=total)
                 for k, v in metrics.items():
@@ -189,6 +227,8 @@ def make_train_step(cfg: ModelConfig, hp: OptHParams | None = None,
             with torch.no_grad():
                 grads = tree_map(lambda g: g.float().div_(n_microbatches),
                                  grads)
+                if grad_shardings is not None:
+                    grads = tree_map(_like, grads, params)
             metrics = {k: v / n_microbatches for k, v in msum.items()}
 
         new_err = None

@@ -1410,3 +1410,50 @@ def test_expert_all_to_all_on_a_one_rank_nccl_group(cuda_device):
     assert res["moe"]["launches"] == 3
     assert res["moe"]["out"].tobytes() == want.contiguous().view(
         torch.uint8).cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_modeled_geometry_equals_launch_geometry_on_seed0_convs(cuda_device):
+    """``analysis.hlo_gates.geometry`` (H003's Python copy of the tile
+    kernels' ``geometry()``) equals the launch the library describes, for
+    every tiled conv of seed 0's adaptive plan at the published widths: the
+    stem (C=4) and the level's own width, f32 fused and bf16 pre-gathered."""
+    from repro_torch.analysis.hlo_gates import geometry
+    from repro_torch.kernels.sspnna import sspnna
+
+    cfg = UNetConfig(resolution=64, capacity=16384)
+    coords, feats, _, mask = make_scene(0, resolution=64, capacity=16384,
+                                        points_per_unit=6e4)
+    host = engine.build_scene_plan_host(SparseVoxelTensor(coords, feats, mask),
+                                        cfg)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    checked = 0
+    for li, lvl in enumerate(host.levels):
+        if lvl.sub.tiles is None:
+            continue
+        t, d_o, k = tuple(np.asarray(lvl.sub.tiles.local_idx).shape)
+        w = cfg.widths[li]
+        for c, n in ({(w, w)} | ({(cfg.in_channels, w)} if li == 0 else set())):
+            for kernel, dtype in ((sspnna.KERNEL, torch.float32),
+                                  (sspnna.TILES_KERNEL, torch.bfloat16)):
+                launch = sspnna.launch_geometry(kernel, t, d_o, k, c, n, dtype)
+                model = geometry(t * d_o, c, n, k, dtype.itemsize, sms)
+                assert {key: launch[key] for key in model} == model, (
+                    li, kernel, c, n)
+                checked += 1
+    assert checked >= 4
+
+
+@pytest.mark.cuda
+def test_analysis_hlo_pass_is_clean_on_the_card(cuda_device):
+    """The ``hlo`` pass launches the fused conv and finds nothing: no
+    gather or scatter op or kernel, no kernel but the fused one and the
+    fill, one graph signature, shared memory within the opt-in limit and
+    the modeled geometry equal to the launch's."""
+    from pathlib import Path
+
+    from repro_torch.analysis.__main__ import run_hlo
+
+    launches = sspnna_fused.launches
+    assert run_hlo(Path(__file__).resolve().parents[1]) == []
+    assert sspnna_fused.launches > launches

@@ -590,6 +590,8 @@ def test_production_and_host_meshes_under_fake_worlds():
 
 
 def test_grad_shardings_waits_for_slice_11b():
+    """Slice 11b brought ``grad_shardings``: ``make_train_step`` takes the
+    tree and no longer raises (``tests/test_torch_launch.py`` holds a
+    2-process step with it to the step without)."""
     cfg = get_config("stablelm-1.6b").reduced()
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        train_loop.make_train_step(cfg, grad_shardings={})
+    assert callable(train_loop.make_train_step(cfg, grad_shardings={}))

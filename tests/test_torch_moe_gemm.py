@@ -23,6 +23,7 @@ import torch
 from repro.kernels.moe_gemm.moe_gemm import grouped_gemm as jax_grouped_gemm
 from repro.kernels.moe_gemm.ref import grouped_gemm_ref as jax_grouped_gemm_ref
 from repro_torch.kernels import build
+from repro_torch.kernels.moe_gemm import moe_gemm as moe_gemm_module
 from repro_torch.kernels.moe_gemm.moe_gemm import ARGTYPES, KERNEL, grouped_gemm
 from repro_torch.kernels.moe_gemm.ops import grouped_gemm_ref
 from repro_torch.kernels.moe_gemm.ref import (
@@ -124,14 +125,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         grouped_gemm(xin.requires_grad_(), w, valid)
 
 
-def test_wrapper_runs_the_plain_version_only_on_the_cpu():
-    """Tensors off the CPU never reach the plain version: a device other
-    than cuda raises, and nothing is counted."""
+def test_wrapper_runs_the_plain_version_only_on_the_cpu(monkeypatch):
+    """Tensors off the CPU never reach the plain version, and nothing is
+    counted: meta tensors (no data) take the fake launch the dry run
+    uses, an empty (E, C, f) output on meta."""
     xin, w, valid = (x.to("meta") for x in random_moe_inputs(
         np.random.default_rng(0), e=2, c=8, d=16, f=24, valid_share=0.5))
     launches = grouped_gemm.launches
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        grouped_gemm(xin, w, valid)
+    monkeypatch.setattr(moe_gemm_module, "grouped_gemm_ref", None)
+    out = grouped_gemm(xin, w, valid)
+    assert out.device.type == "meta" and out.shape == (2, 8, 24)
     assert grouped_gemm.launches == launches
 
 

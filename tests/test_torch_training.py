@@ -527,8 +527,9 @@ def test_train_mode_runs_no_kernel_and_prefill_does(monkeypatch,
 
 def test_train_step_refuses_what_later_slices_bring():
     cfg = get_config("stablelm-1.6b").reduced()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        train_loop.make_train_step(cfg, grad_shardings={})
+    # slice 11b brought grad_shardings: taken, no longer refused
+    # (tests/test_torch_launch.py holds a sharded accumulator's step)
+    assert callable(train_loop.make_train_step(cfg, grad_shardings={}))
     # an encoder-decoder batch needs its source frames, as the JAX
     # package's loss reads batch["enc_frames"]
     encdec = dataclasses.replace(cfg, encoder_layers=2)
