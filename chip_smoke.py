@@ -33,6 +33,21 @@
    body (``SSPNNA_BREAKDOWN`` in ``sspnna_tile.cuh``): without the plane
    feed's copies, without the products, and with one TF32 product of the
    three.
+4b. Plans each level's submanifold conv of the three scenes with the
+   paper's dataflow optimizers ("SCN dataflow"): input-row fetches at tiles
+   of 256 outputs (Fig 23's cost model) for the engine's SOAR order, the
+   raster order and hierarchical SOAR (chunks of 128 inside 2048); the
+   surface-ratio fit of SA_I (Fig 15); an offline SPADE table per level
+   from the three scenes' meta-attributes (64 KiB budget), looked up at
+   each scene's ARF against ``explore`` on the scene's own attributes (the
+   DA ratio, and the host time of each). Then launches ``sspnna_fused`` on
+   the plans ``conv_plan_for_layer`` builds from (a) the hierarchical order
+   with its own attributes and (b) the SOAR order with the looked-up
+   dataflow, on every level whose dispatch maps to ``sspnna`` (each
+   level's mapping printed beside the engine's own dispatch): each launch
+   against its plain version (1e-4) and the conv against ``reference`` on
+   the same plan (1e-4), timed on the device beside the engine's own plan
+   of the level and the launch's bound. (a) must launch on some level.
 5. Holds the pre-gathered tile-stack kernel (``sspnna_tiles``) against its
    plain version on random stacks (``kernels/sspnna/ref.TILE_STACK_CASES``:
    f32 and bf16, K 27 and 8, ragged C and N, all-hole tiles).
@@ -303,6 +318,13 @@ LOGITS_TOL = 1e-3
 # reference convs' products), then a batch norm after every conv
 WAVE_TOL = 1e-4
 SEEDS = (0, 1, 2)
+# the "SCN dataflow" phase: Fig 23's tiles of DATAFLOW_TILE outputs and
+# hierarchical SOAR's chunk sizes (``benchmarks/bench_soar.py``'s), the
+# engine's SOAR chunk and SPADE budget; the lookup is timed over
+# LOOKUP_REPS calls, ``explore`` over EXPLORE_REPS
+DATAFLOW_TILE, DATAFLOW_CHUNKS = 256, [128, 2048]
+DATAFLOW_SOAR_CHUNK, DATAFLOW_BUDGET = 512, 64 * 1024
+LOOKUP_REPS, EXPLORE_REPS = 10_000, 3
 # measured dispatch: samples a backend at each level (median of k), and the
 # idle hook's budget a tick (enough to profile every missed level at once)
 AUTOTUNE_K, REPROFILE_MS = 5, 120_000.0
@@ -900,8 +922,238 @@ def scn_path(dev: torch.device, phase: Phases) -> tuple[dict, dict]:
     seed0_state = {"cfg": cfg, "model": model, "feats": feats0,
                    "coords": requests[0][4].levels[0].coords,
                    "host": requests[0][4], "plan": plan0, "calls": calls,
-                   "logits": logits0}
+                   "logits": logits0,
+                   # every scene's (seed, host plan, uploaded plan)
+                   "scenes": [(seed, host, uploaded[seed])
+                              for seed, _, _, _, host in requests]}
     return entry, seed0_state
+
+
+def spade_da(layer, attrs, df) -> float:
+    """``explore``'s data accesses (Eqn 5, with RST's split-tile factor) of
+    the dataflow ``df`` on ``layer`` with ``attrs``."""
+    from repro_torch.core import spade
+
+    da, _ = spade.data_accesses(layer, attrs, df.delta_major, df.delta_c,
+                                df.delta_n, df.walk, df.flavor)
+    if df.tiling == "RST":
+        da *= 1.0 + 0.5 * attrs.at(df.delta_major, "rst_overshoot_frac")
+    return da
+
+
+def scn_dataflow_path(dev: torch.device, phase: Phases, model, cfg,
+                      scenes) -> dict:
+    """Phase 4b ("SCN dataflow"): SOAR's access counts, the surface-ratio
+    fit and offline SPADE on each level's submanifold conv of ``scenes``
+    (``(seed, host plan, uploaded plan)``), then ``sspnna_fused`` on the
+    plans of hierarchical SOAR with its own SPADE choice and of the SOAR
+    order with the looked-up dataflow. Returns the fused kernel's
+    "dataflow" entry."""
+    from repro_torch import engine
+    from repro_torch.core import soar, spade
+    from repro_torch.kernels.sspnna import ops, sspnna
+
+    fused, plain = sspnna.sspnna_fused, sspnna.sspnna_fused_plain
+    phase("SCN dataflow")
+    t_phase = time.perf_counter()
+
+    def layer_of(li, v):  # the engine's SPADE layer of a level
+        return spade.LayerSpec(f"level{li}", v, v, 27, cfg.widths[li],
+                               cfg.widths[li], 2)
+
+    # host: the three orders of each scene's levels, their input-row
+    # fetches, the SOAR attributes and their surface-ratio fit
+    lv = {}
+    for seed, host, _ in scenes:
+        for li, lvl in enumerate(host.levels):
+            idx, mask = lvl.sub.coir.indices, lvl.mask
+            t0 = time.perf_counter()
+            order = soar.soar_order(idx, mask, DATAFLOW_SOAR_CHUNK).order
+            t1 = time.perf_counter()
+            hier = soar.soar_hierarchical(idx, mask, DATAFLOW_CHUNKS)
+            t2 = time.perf_counter()
+            orders = {"soar": order,
+                      "raster": soar.raster_order(lvl.coords, mask),
+                      "hierarchical": hier.order}
+            fetches = {k: soar.tiled_unique_input_accesses(o, idx,
+                                                           DATAFLOW_TILE)
+                       for k, o in orders.items()}
+            attrs = spade.extract_attributes(idx, mask, order)
+            alpha, corr = spade.fit_surface_ratio(attrs)
+            lv[seed, li] = {"n": int(mask.sum()), "orders": orders,
+                            "attrs": attrs, "fetches": fetches,
+                            "fit": (alpha, corr)}
+            print(f"dataflow seed={seed} L{li} {int(mask.sum())} voxels: "
+                  f"input rows fetched at tiles of {DATAFLOW_TILE}: SOAR "
+                  f"{fetches['soar']}, raster {fetches['raster']} "
+                  f"(raster / SOAR {fetches['raster'] / fetches['soar']:.3f}), "
+                  f"hierarchical {DATAFLOW_CHUNKS} {fetches['hierarchical']} "
+                  f"(SOAR / hierarchical "
+                  f"{fetches['soar'] / fetches['hierarchical']:.3f}, "
+                  f"{hier.n_chunks} chunks of 128); host s: SOAR "
+                  f"{t1 - t0:.2f}, hierarchical {t2 - t1:.2f}; surface-ratio "
+                  f"fit alpha={alpha:.4f} corr={corr:.4f}; ARF "
+                  f"{attrs.arf_avg[0]:.4f}")
+
+    # offline SPADE: one table a level from the three scenes' MSA, looked
+    # up at each scene's ARF against explore on its own attributes; each
+    # level's dispatch from (a) the hierarchical order's own attributes and
+    # (b) the lookup, beside the engine's
+    n_levels, plans, rows, lookups = len(cfg.widths), [], [], []
+    for li in range(n_levels):
+        mine = [lv[seed, li] for seed, _, _ in scenes]
+        msa = spade.meta_attributes([m["attrs"] for m in mine])
+        table_layer = layer_of(li, round(statistics.mean(m["n"] for m in mine)))
+        t0 = time.perf_counter()
+        table = spade.build_offline_table([table_layer], msa, DATAFLOW_BUDGET)
+        table_s = time.perf_counter() - t0
+        for seed, host, uploaded in scenes:
+            m = lv[seed, li]
+            n, attrs, order = m["n"], m["attrs"], m["orders"]["soar"]
+            layer = layer_of(li, n)
+            arf = float(attrs.arf_avg[0])
+            t0 = time.perf_counter()
+            for _ in range(LOOKUP_REPS):
+                off = spade.otf_lookup(table, table_layer, arf)
+            lookup_us = (time.perf_counter() - t0) / LOOKUP_REPS * 1e6
+            times = []
+            for _ in range(EXPLORE_REPS):
+                t0 = time.perf_counter()
+                jsa = spade.explore(layer, {"CIRF": attrs, "CORF": attrs},
+                                    DATAFLOW_BUDGET)
+                times.append(time.perf_counter() - t0)
+            explore_us = statistics.median(times) * 1e6
+            ratio = off.da_elems / jsa.da_elems
+            here = spade_da(layer, attrs, off) / jsa.da_elems
+            h_attrs = spade.extract_attributes(
+                host.levels[li].sub.coir.indices, host.levels[li].mask,
+                m["orders"]["hierarchical"])
+            h_df = spade.explore(layer, {"CIRF": h_attrs, "CORF": h_attrs},
+                                 DATAFLOW_BUDGET)
+            d_a = engine.dispatch_from_dataflow(h_df, h_attrs, n)
+            d_b = engine.dispatch_from_dataflow(off, attrs, n)
+            mine_d = host.stats[li]["dispatch"]
+
+            def says(d):
+                return (f"{d.backend} dO={d.delta_o} dI={d.delta_i}"
+                        if d.backend == engine.SSPNNA else d.backend)
+
+            print(f"dataflow seed={seed} L{li}: offline table of 9 ARF bins "
+                  f"built in {table_s:.3f} s; lookup at ARF {arf:.4f} -> "
+                  f"{off.walk}/{off.flavor} dO={off.delta_major} "
+                  f"dC={off.delta_c} dN={off.delta_n} in {lookup_us:.2f} us, "
+                  f"explore on the scene's attributes -> {jsa.walk}/"
+                  f"{jsa.flavor} dO={jsa.delta_major} dC={jsa.delta_c} "
+                  f"dN={jsa.delta_n} in {explore_us:.1f} us "
+                  f"({explore_us / lookup_us:.0f}x the lookup); DA offline "
+                  f"/ scene's own: {ratio:.4f} (the table's DA), {here:.4f} "
+                  f"(the looked-up dataflow's DA on the scene's attributes); "
+                  f"dispatch (a) hierarchical: {says(d_a)}, (b) lookup: "
+                  f"{says(d_b)}, the engine's SOAR plan: {says(mine_d)}")
+            lookups.append({"seed": seed, "level": li, "arf": arf,
+                            "lookup_us": lookup_us, "explore_us": explore_us,
+                            "table_s": table_s, "da_ratio": ratio,
+                            "da_ratio_on_scene": here,
+                            "dispatch": {"hierarchical": d_a.backend,
+                                         "lookup": d_b.backend,
+                                         "engine": mine_d.backend}})
+            for source, d, rows_order in (("hierarchical", d_a,
+                                           m["orders"]["hierarchical"]),
+                                          ("lookup", d_b, order)):
+                if d.backend != engine.SSPNNA:
+                    continue
+                try:
+                    cp = engine.conv_plan_for_layer(
+                        uploaded.levels[li].sub.coir, rows_order, d.delta_o,
+                        d.delta_i, walk=d.walk, device=dev)
+                except ValueError as e:  # plane split: the engine's fallback
+                    print(f"dataflow seed={seed} L{li} ({source}): {e}; "
+                          f"reference, as the engine falls back")
+                    continue
+                plans.append((seed, li, source, cp, uploaded.levels[li]))
+
+    # the path: every plan's conv through the engine, launches counted
+    check(any(p[2] == "hierarchical" for p in plans),
+          "the hierarchical SOAR order mapped to sspnna on no level")
+    inputs = {}
+    for li in range(n_levels):
+        g = torch.Generator().manual_seed(100 + li)
+        inputs[li] = (torch.randn((cfg.capacity, cfg.widths[li]),
+                                  generator=g).to(dev),
+                      model.levels[li].enc[0].conv.params)
+    calls, outs = [], []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return fused(*args, **kw)
+
+    zero_kernel_counts()
+    ops.sspnna_fused = record
+    try:
+        with torch.inference_mode():
+            for seed, li, source, cp, lvl in plans:
+                x, p = inputs[li]
+                x = x * lvl.mask.unsqueeze(-1)
+                outs.append((x, engine.sparse_conv(x, p, cp,
+                                                   backend="sspnna")))
+        torch.cuda.synchronize()
+    finally:
+        ops.sspnna_fused = fused
+    launches = fused.launches
+    check(launches == len(plans) == len(calls),
+          f"sspnna_fused launched {launches} times for {len(plans)} plans")
+    check(launched_only("sspnna_fused"), "the dataflow path launched another "
+          "kernel")
+
+    worst_abs = 0.0
+    with torch.inference_mode():
+        for (seed, li, source, cp, lvl), (args, kw), (x, out) in zip(
+                plans, calls, outs, strict=True):
+            what = f"dataflow seed={seed} L{li} ({source})"
+            got, want = kernel_vs_plain(
+                "sspnna_fused", lambda: fused(*args, **kw),
+                lambda: plain(*args, **kw), what)
+            abs_err, rel_err = max_err(got, want)
+            check(rel_err <= KERNEL_TOL, f"{what}: kernel disagrees")
+            worst_abs = max(worst_abs, abs_err)
+            _, p = inputs[li]
+            ref = engine.sparse_conv(x, p, cp, backend="reference")
+            ref_abs, ref_rel = max_err(out, ref)
+            check(ref_rel <= KERNEL_TOL, f"{what}: the conv disagrees with "
+                  "reference on the same plan")
+            dev_ms = device_ms(lambda: fused(*args, **kw), 20)
+            b_ms, b_by = sspnna_bound(*args, kw["n_out"])
+            eng_ms = None
+            if lvl.sub.dispatch.backend == engine.SSPNNA:
+                eng_args = (x, p.weight, *lvl.sub.tiles)
+                eng_ms = device_ms(lambda: fused(*eng_args, **kw), 20)
+            d, t = cp.dispatch, args[4].shape[0]
+            print(f"{what}: T={t} dO={d.delta_o} dI={d.delta_i}: kernel "
+                  f"{dev_ms:.4f} ms on the device (the engine's SOAR plan of "
+                  f"the level: "
+                  + (f"{eng_ms:.4f} ms, T={lvl.sub.dispatch.n_tiles} "
+                     f"dO={lvl.sub.dispatch.delta_o} "
+                     f"dI={lvl.sub.dispatch.delta_i}" if eng_ms is not None
+                     else lvl.sub.dispatch.backend)
+                  + f"); bound {b_ms:.4f} ms ({b_by}); kernel vs plain max "
+                  f"abs {abs_err:.3g} rel {rel_err:.3g}, conv vs reference "
+                  f"max abs {ref_abs:.3g} rel {ref_rel:.3g} (tol {KERNEL_TOL})")
+            rows.append({"seed": seed, "level": li, "source": source,
+                         "n_tiles": int(t), "delta_o": d.delta_o,
+                         "delta_i": d.delta_i, "device_ms": dev_ms,
+                         "engine_device_ms": eng_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "max_abs_err": abs_err,
+                         "reference_max_abs_err": ref_abs})
+    del outs, inputs
+    print(f"SCN dataflow: sspnna_fused launches {launches} "
+          f"({sum(r['source'] == 'hierarchical' for r in rows)} hierarchical, "
+          f"{sum(r['source'] == 'lookup' for r in rows)} looked up); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "max_abs_err": worst_abs,
+            "plans": rows, "lookups": lookups,
+            "fetches": [{"seed": s, "level": li, **m["fetches"],
+                         "fit_alpha": m["fit"][0], "fit_corr": m["fit"][1]}
+                        for (s, li), m in lv.items()]}
 
 
 def fused_breakdown(calls) -> dict[str, float]:
@@ -4226,6 +4478,10 @@ def main() -> int:
                                      analysis["max_abs_err"])
     fused_entry["ptxas"] = {k: {"registers": r, "spill_bytes": sp}
                             for k, (r, sp) in sorted(sspnna_ptxas.items())}
+    fused_entry["dataflow"] = scn_dataflow_path(
+        dev, phase, seed0["model"], seed0["cfg"], seed0.pop("scenes"))
+    fused_entry["max_abs_err"] = max(fused_entry["max_abs_err"],
+                                     fused_entry["dataflow"]["max_abs_err"])
     results = [fused_entry]
     with torch.inference_mode():  # the model's parameters require grad
         tiles_entry = pregathered_path(dev, phase, seed0)

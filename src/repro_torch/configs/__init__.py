@@ -25,5 +25,7 @@ from repro_torch.configs.base import (
     register,
 )
 
+ARCH_NAMES = list_configs()
+
 __all__ = ["ModelConfig", "MoEConfig", "get_config", "list_configs",
-           "register"]
+           "register", "ARCH_NAMES"]

@@ -9,6 +9,10 @@ Port of ``repro.core.soar`` (host-side numpy, the paper's algorithm):
    neighbours.
 4. When the chunk reaches the size bound, emit it; the next root is the
    minimum-degree voxel in the Neighbour Queue, which is then flushed.
+
+Hierarchical SOAR (§V-B): chunks are reinterpreted as points (adjacent iff
+any member voxels are adjacent) and SOAR recurses with the outer level's
+size bound, innermost to outermost.
 """
 from __future__ import annotations
 
@@ -101,6 +105,57 @@ def soar_order(
     return SoarResult(np.array(order, np.int64), np.array(chunk_starts, np.int64))
 
 
+def soar_hierarchical(
+    neighbor_table: np.ndarray,
+    active_mask: np.ndarray,
+    chunk_sizes: list[int],
+) -> SoarResult:
+    """Multi-level SOAR: innermost chunk size first (§V-B).
+
+    Returns the flattened voxel order with chunk boundaries of the
+    *innermost* level; outer levels permute whole inner chunks.
+    """
+    assert chunk_sizes, "need at least one level"
+    inner = soar_order(neighbor_table, active_mask, chunk_sizes[0])
+    if len(chunk_sizes) == 1:
+        return inner
+    # chunk-level adjacency: chunks are adjacent iff any voxel pair is
+    n_chunks = inner.n_chunks
+    chunk_of = np.full(neighbor_table.shape[0], -1, np.int64)
+    for c in range(n_chunks):
+        seg = inner.order[inner.chunk_starts[c]:inner.chunk_starts[c + 1]]
+        chunk_of[seg] = c
+    adj = [set() for _ in range(n_chunks)]
+    for i in np.flatnonzero(np.asarray(active_mask)):
+        ci = chunk_of[i]
+        if ci < 0:
+            continue
+        for w in neighbor_table[i]:
+            if w >= 0 and chunk_of[w] >= 0 and chunk_of[w] != ci:
+                adj[ci].add(int(chunk_of[w]))
+    kmax = max((len(a) for a in adj), default=1) or 1
+    chunk_nbr = np.full((n_chunks, kmax), -1, np.int64)
+    for c, a in enumerate(adj):
+        lst = sorted(a)
+        chunk_nbr[c, : len(lst)] = lst
+    outer_budget = max(chunk_sizes[1] // max(chunk_sizes[0], 1), 1)
+    outer = soar_hierarchical(
+        chunk_nbr, np.ones(n_chunks, bool), [outer_budget] + [
+            s // max(chunk_sizes[0], 1) for s in chunk_sizes[2:]
+        ],
+    )
+    # flatten: permute the inner chunks by the outer order
+    order = np.concatenate(
+        [
+            inner.order[inner.chunk_starts[c]:inner.chunk_starts[c + 1]]
+            for c in outer.order
+        ]
+    )
+    sizes = np.diff(inner.chunk_starts)[outer.order]
+    chunk_starts = np.concatenate([[0], np.cumsum(sizes)])
+    return SoarResult(order, chunk_starts)
+
+
 def raster_order(coords: np.ndarray, active_mask: np.ndarray,
                  axes=(0, 1, 2)) -> np.ndarray:
     """Raster-scan baseline ordering: lexicographic sort along the given
@@ -108,3 +163,17 @@ def raster_order(coords: np.ndarray, active_mask: np.ndarray,
     act = np.flatnonzero(np.asarray(active_mask))
     keycols = [coords[act, a] for a in reversed(axes)]
     return act[np.lexsort(keycols)]
+
+
+def tiled_unique_input_accesses(
+    order: np.ndarray, cirf_indices: np.ndarray, tile_out: int
+) -> int:
+    """Data-access cost model of Fig 23: process outputs in ``order`` in
+    tiles of ``tile_out``; each tile fetches its unique input partners once.
+    Returns the total input-row fetches across tiles."""
+    total = 0
+    for s in range(0, len(order), tile_out):
+        rows = cirf_indices[order[s:s + tile_out]]
+        ids = rows[rows >= 0]
+        total += len(np.unique(ids))
+    return total

@@ -17,11 +17,17 @@ Data accesses (Eqn 5):
 
 SST tiling allocates for the worst-case region; RST for the q-th quantile
 and models overshooting tiles as split in two.
+
+Offline mode (§V-C): SA_I is a *meta* attribute (MSA_I, consistent across
+pointclouds; it tracks the surface-to-volume ratio alpha_m / v^(1/m)), and
+ARF is the input-specific attribute (JSA). ``build_offline_table``
+precomputes the optimal dataflow per ARF bin; ``otf_lookup`` then only
+measures ARF and looks the plan up.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -90,6 +96,24 @@ def extract_attributes(
         np.array(arf_a), np.array(arf_m), np.array(arf_q), np.array(over),
         quantile,
     )
+
+
+def surface_ratio_model(delta_o: np.ndarray, alpha: float, m: int = 3) -> np.ndarray:
+    """The paper's observed fit: SA_I(v) ~ 1 + alpha_m / v^(1/m)
+    (surface-to-volume ratio of an m-cube)."""
+    return 1.0 + alpha / np.maximum(delta_o, 1) ** (1.0 / m)
+
+
+def fit_surface_ratio(attrs: SparsityAttributes, m: int = 3) -> tuple[float, float]:
+    """Least-squares alpha and correlation of SA_I_avg against the
+    surface-ratio model (the Fig 15 observation). A constant series gives a
+    nan correlation, as ``np.corrcoef`` does."""
+    x = 1.0 / attrs.delta_majors ** (1.0 / m)
+    y = attrs.sa_minor_avg - 1.0
+    alpha = float(np.dot(x, y) / max(np.dot(x, x), 1e-12))
+    pred = alpha * x
+    corr = float(np.corrcoef(pred, y)[0, 1]) if len(x) > 2 else 1.0
+    return alpha, corr
 
 
 @dataclass(frozen=True)
@@ -249,3 +273,57 @@ def meta_attributes(per_cloud: list[SparsityAttributes]) -> SparsityAttributes:
         stack("rst_overshoot_frac").mean(0),
         ref.quantile,
     )
+
+
+# ---------------------------------------------------------------------------
+# Offline SPADE (MSA tables indexed by ARF), §V-C
+# ---------------------------------------------------------------------------
+
+@dataclass
+class OfflineTable:
+    arf_bins: np.ndarray                     # bin upper edges
+    plans: dict[tuple[str, int], Dataflow] = field(default_factory=dict)
+
+    def lookup(self, layer_name: str, arf: float) -> Dataflow:
+        # left-sided: an ARF on an edge takes that edge's bin; past the last
+        # edge it clamps to the last bin
+        b = int(np.searchsorted(self.arf_bins, arf))
+        b = min(b, len(self.arf_bins) - 1)
+        return self.plans[(layer_name, b)]
+
+
+def build_offline_table(
+    layers: list[LayerSpec],
+    msa: SparsityAttributes,
+    mem_budget_bytes: int,
+    arf_bins: np.ndarray | None = None,
+) -> OfflineTable:
+    """Precompute optimal dataflows per (layer, ARF bin) using MSA_I and a
+    synthetic constant-ARF attribute per bin (ARF is the JSA)."""
+    bins = arf_bins if arf_bins is not None else np.array(
+        [2, 4, 6, 8, 10, 13, 16, 20, 27], float
+    )
+    table = OfflineTable(bins)
+    for layer in layers:
+        for b, arf in enumerate(bins):
+            synth = SparsityAttributes(
+                msa.delta_majors,
+                msa.sa_minor_avg,
+                msa.sa_minor_alloc_sst,
+                msa.sa_minor_alloc_rst,
+                np.full_like(msa.arf_avg, arf),
+                np.full_like(msa.arf_avg, arf),
+                np.full_like(msa.arf_avg, arf),
+                msa.rst_overshoot_frac,
+                msa.quantile,
+            )
+            table.plans[(layer.name, b)] = explore(
+                layer, {"CIRF": synth, "CORF": synth}, mem_budget_bytes
+            )
+    return table
+
+
+def otf_lookup(table: OfflineTable, layer: LayerSpec, arf: float) -> Dataflow:
+    """On-the-fly SPADE: one ARF measurement -> table lookup (near-zero
+    latency; the paper overlaps it with the first layer's execution)."""
+    return table.lookup(layer.name, arf)

@@ -22,8 +22,12 @@ params_from_jax``), so each leaf's rule is evaluated on the shape its leaf
 has in the JAX layout (``training.train_loop.layout_groups`` says which
 port leaves form one stacked leaf) and the stack's entry is then dropped.
 Where the JAX rule would shard the stack itself, the port cannot split one
-layer's tensor over layers: the entry is dropped all the same, and the
-leaf is replicated over that axis.
+layer's tensor over layers. For a parameter the entry is dropped all the
+same, and the leaf is replicated over that axis. For a decode cache the
+DP entry moves to the first other dim that the DP size divides and that
+is not the model dim (the batch dim, as a rule), so a rank holds the same
+1/dp share of the cache as under the JAX layout; where no such dim
+exists, the leaf is replicated over DP.
 """
 from __future__ import annotations
 
@@ -93,12 +97,14 @@ class ShardingRules:
             return [self._layout_shapes(x) for x in tree]
         return shape(tree), None
 
-    def _per_leaf(self, rule, tree):
+    def _per_leaf(self, rule, tree, restack=None):
         """``rule`` on each leaf's JAX-layout shape; a stacked leaf's spec
-        loses its stack entry."""
+        loses its stack entry, after ``restack(spec, shape)`` where given."""
         def one(shape_stacked):
             shape, stacked = shape_stacked
             spec = rule(shape)
+            if stacked and spec and restack is not None:
+                spec = restack(spec, shape)
             return self._named(spec[1:] if stacked and spec else spec)
 
         return tree_map(one, self._layout_shapes(tree))
@@ -165,5 +171,20 @@ class ShardingRules:
                     break
         return tuple(entries)
 
+    def _move_dp_off_stack(self, spec, shape) -> tuple:
+        """A cache spec whose DP entry sits on the stack (dim 0), with that
+        entry moved to the first other dim the DP size divides that the
+        model entry does not hold; unchanged where there is none."""
+        dp = self._dp_entry()
+        if dp is None or spec[0] != dp:
+            return spec
+        for d in range(1, len(shape)):
+            if spec[d] is None and self._divides(shape[d], self.dp_size):
+                entries = list(spec)
+                entries[0], entries[d] = None, dp
+                return tuple(entries)
+        return spec
+
     def cache_shardings(self, cache):
-        return self._per_leaf(self.cache_spec, cache)
+        return self._per_leaf(self.cache_spec, cache,
+                              restack=self._move_dp_off_stack)

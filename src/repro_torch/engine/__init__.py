@@ -98,9 +98,18 @@ from repro_torch.engine.shard import (
     upload_sharded_scene_plan,
 )
 
+
+def __getattr__(name: str):
+    # legacy closed-enum alias; api owns the (single) definition
+    if name == "BACKENDS":
+        from repro_torch.engine import api
+        return api.BACKENDS
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
-    "AUTO", "DEFAULT_REGISTRY", "REFERENCE", "SHARDED", "SSPNNA", "Backend",
-    "BackendRegistry", "ConvPlan", "CostTable", "Dispatch",
+    "AUTO", "BACKENDS", "DEFAULT_REGISTRY", "REFERENCE", "SHARDED", "SSPNNA",
+    "Backend", "BackendRegistry", "ConvPlan", "CostTable", "Dispatch",
     "ExecutionContext", "LevelPlan", "Measurement", "PlanCache", "PlanSpec",
     "ReferenceBackend", "SSpNNABackend", "ScenePlan", "ShapeSig",
     "ShardLayout", "ShardedBackend", "ShardedConvPlan", "ShardedLevelPlan",

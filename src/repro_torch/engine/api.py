@@ -28,6 +28,14 @@ from repro_torch.engine.plan import (
 )
 
 
+def __getattr__(name: str):
+    # legacy alias for the closed enum the JAX package's api once
+    # hard-coded; computed on access so late registrations show up
+    if name == "BACKENDS":
+        return (AUTO,) + DEFAULT_REGISTRY.names()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def available_backends(registry: BackendRegistry = DEFAULT_REGISTRY
                        ) -> tuple[str, ...]:
     """Backend names resolvable through ``registry``."""

@@ -46,7 +46,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.dist.compat import make_mesh
 from repro_torch.dist.hints import use_mesh
 from repro_torch.dist.sharding import ShardingRules
@@ -61,7 +61,6 @@ from repro_torch.launch.shapes import (
 )
 from repro_torch.training.tree import tree_map
 
-ARCH_NAMES = list_configs()
 N_MICROBATCHES = 8  # train grad-accumulation steps (per-device micro <= 2)
 HBM_BYTES = 80e9    # one H100's memory
 

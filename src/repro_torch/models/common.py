@@ -1,7 +1,8 @@
 """Shared model components: norms, softcap, RoPE, initializers (port of
 ``repro.models.common``).
 
-``rms_norm`` computes in f32 and multiplies by ``w`` (not ``1 + w``), and
+``rms_norm`` computes in f32 and multiplies by ``w`` (not ``1 + w``),
+``layer_norm`` computes in f32 and casts back to the input dtype, and
 RoPE rotates split halves in f32, as the JAX package does.
 """
 from __future__ import annotations
@@ -20,6 +21,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     x = x.float()
     x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
     return (x * weight.float()).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dt)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

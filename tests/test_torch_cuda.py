@@ -223,6 +223,50 @@ def test_plane_split_conv_through_kernel_matches_reference(cuda_device):
                                ref.cpu().numpy()[mask], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_fused_kernel_on_a_hierarchical_soar_plan(cuda_device):
+    """Level 0 of a small scene (2,412 voxels) in hierarchical SOAR order
+    (chunks of 128 inside 2048): its own attributes through ``explore`` and
+    ``dispatch_from_dataflow`` give a tiled ``sspnna`` plan, which
+    ``conv_plan_for_layer`` builds on the card; the kernel's launch is held
+    against its plain version (max abs / max(|want|, 1) within 1e-4, the
+    kernel's tolerance) and the conv against the reference backend."""
+    from repro_torch.core import spade
+    from repro_torch.core.coir import kernel_offsets_np
+    from repro_torch.core.soar import soar_hierarchical
+
+    coords, _, _, mask = make_scene(0, resolution=64, capacity=8192)
+    sub = host_meta.build_cirf_np(coords, mask, coords, mask,
+                                  kernel_offsets_np(3), 64)
+    order = soar_hierarchical(sub.indices, mask, [128, 2048]).order
+    attrs = spade.extract_attributes(sub.indices, mask, order)
+    v, c = int(mask.sum()), 16
+    df = spade.explore(spade.LayerSpec("L0", v, v, K, c, c, 2),
+                       {"CIRF": attrs, "CORF": attrs}, 64 * 1024)
+    d = engine.dispatch_from_dataflow(df, attrs, v)
+    assert d.backend == engine.SSPNNA and d.delta_o < v
+    cp = engine.conv_plan_for_layer(sub, order, d.delta_o, d.delta_i,
+                                    walk=d.walk, device=cuda_device)
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randn(len(mask), c, generator=gen)
+         * torch.from_numpy(mask)[:, None]).to(cuda_device)
+    p = SparseConvParams(*(t.to(cuda_device) for t in (
+        torch.randn(K, c, c, generator=gen) / (K * c) ** 0.5,
+        torch.randn(c, generator=gen))))
+    args = (x, p.weight, *cp.tiles)
+    launches = sspnna_fused.launches
+    got = sspnna_fused(*args, n_out=len(mask))
+    conv = engine.sparse_conv(x, p, cp, backend="sspnna")
+    torch.cuda.synchronize()
+    assert sspnna_fused.launches == launches + 2
+    want = sspnna_fused_plain(*args, n_out=len(mask))
+    assert float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1.0)) <= 1e-4
+    ref = engine.sparse_conv(x, p, engine.reference_plan(cp.coir))
+    np.testing.assert_allclose(conv.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
 # The SSpNNA kernels' edges, on the card only (kept out of
 # TILE_STACK_CASES, which the CPU tests also hold against the JAX
 # package): (name, t, d_i, d_o, k, c, n, dtype). A block owns 16-128
@@ -414,13 +458,22 @@ def test_flash_pads_a_head_dim_to_an_instance_without_spills(cuda_device, d,
     assert spills == [0]
 
 
-def _prefill_outputs(cfg, toks, dev):
+def _prefill_outputs(cfg, toks, dev, attention_fn=None):
     """A reduced prefill's logits and caches, in the order of the
-    comparison: logits, then each layer's k and v."""
+    comparison: logits, then each layer's k and v. ``attention_fn`` stands
+    in for the flash wrapper (a CPU reference only)."""
+    from repro_torch.models import attention
+
     params = transformer.init_lm(cfg, device=dev)
-    with torch.inference_mode():
-        logits, cache, _ = transformer.forward(
-            params, cfg, toks.to(dev), mode="prefill", cache_pad=4)
+    flash_fn = attention.flash_attention_bshd
+    if attention_fn is not None:
+        attention.flash_attention_bshd = attention_fn
+    try:
+        with torch.inference_mode():
+            logits, cache, _ = transformer.forward(
+                params, cfg, toks.to(dev), mode="prefill", cache_pad=4)
+    finally:
+        attention.flash_attention_bshd = flash_fn
     return [logits] + [c[x] for c in cache["layers"] for x in ("k", "v")]
 
 
@@ -444,43 +497,41 @@ def _attention_f64(q, k, v, *, causal=True, window=None, softcap=None):
 
 def _prefill_diagnosis(cfg, toks, i, got, want, bad) -> str:
     """Which side of a failing prefill comparison departs (ROADMAP queue 3
-    item 10): the CPU side rerun in this process as it is, and once with
-    its attention in f64; the side farther from the f64 run at the failing
-    positions departs."""
-    from repro_torch.models import attention
-
-    again = _prefill_outputs(cfg, toks, "cpu")[i].numpy()
-    plain = attention.flash_attention_bshd
-    attention.flash_attention_bshd = _attention_f64
-    try:
-        exact = _prefill_outputs(cfg, toks, "cpu")[i].numpy()
-    finally:
-        attention.flash_attention_bshd = plain
-    card_err = float(np.abs(got - exact)[bad].max())
-    cpu_err = float(np.abs(want - exact)[bad].max())
+    item 10): the CPU reference (attention in f64) rerun in this process,
+    and the CPU run with the f32 plain attention; the side farther from
+    the rerun at the failing positions departs."""
+    again = _prefill_outputs(cfg, toks, "cpu", _attention_f64)[i].numpy()
+    plain = _prefill_outputs(cfg, toks, "cpu")[i].numpy()
+    card_err = float(np.abs(got - again)[bad].max())
+    cpu_err = float(np.abs(want - again)[bad].max())
     side = "card" if card_err > cpu_err else "CPU"
     where = [tuple(int(j) for j in ix) for ix in np.argwhere(bad)[:8]]
     return (f"output {i} ({'logits' if i == 0 else 'cache'}): {int(bad.sum())}"
-            f" of {bad.size} past 1e-4, at {where}; the CPU rerun in this "
-            f"process {'equals' if np.array_equal(again, want) else 'differs from'}"
-            f" the first CPU run (max |diff| {float(np.abs(again - want).max()):.3g}); "
-            f"against the CPU with f64 attention at those positions: card "
-            f"{card_err:.3g}, CPU {cpu_err:.3g}, so the {side} side departs")
+            f" of {bad.size} past 1e-4, at {where}; the CPU reference rerun "
+            f"in this process {'equals' if np.array_equal(again, want) else 'differs from'}"
+            f" the first (max |diff| {float(np.abs(again - want).max()):.3g}); "
+            f"against the rerun at those positions: card {card_err:.3g}, "
+            f"CPU {cpu_err:.3g}, so the {side} side departs; the CPU with "
+            f"f32 plain attention stands {float(np.abs(plain - again)[bad].max()):.3g}"
+            f" from the rerun there")
 
 
 @pytest.mark.cuda
 def test_prefill_launches_flash_once_per_layer(cuda_device):
     """A reduced Gemma-2 prefill (window 32 < prompt 80, so the local
     layers mask the window) on the card: one kernel launch per layer, and
-    the logits and caches of the CPU's plain version. A failure names the
-    side that departs and where (``_prefill_diagnosis``)."""
+    the logits and caches of the CPU's reference, whose attention runs in
+    f64 (the f32 plain attention on the CPU was not reproducible within
+    one process after other work). A failure names the side that departs
+    and where (``_prefill_diagnosis``)."""
     cfg = get_config("gemma2-2b").reduced()
     toks = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 80)))
     out = {}
     for dev in ("cpu", cuda_device):
         launches = flash_attention.launches
-        out[str(dev)] = _prefill_outputs(cfg, toks, dev)
+        out[str(dev)] = _prefill_outputs(
+            cfg, toks, dev, _attention_f64 if dev == "cpu" else None)
         torch.cuda.synchronize()
         n = flash_attention.launches - launches
         assert n == (cfg.n_layers if dev == cuda_device else 0)

@@ -14,6 +14,7 @@ orders) and bit for bit against the port's own gather at one rank; the
 pipeline within 1e-5 of the serial apply.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -221,10 +222,49 @@ def _drop(spec):
     return spec[1:] if spec else spec
 
 
+@dataclasses.dataclass(frozen=True)
+class _CacheLeaf:
+    """A JAX cache leaf's spec, its shape and the size of its DP entry."""
+    spec: tuple
+    shape: tuple
+    dp_size: int
+
+
+def _jax_cache_leaves(jrules, jcache):
+    """The JAX rules' cache specs as ``_CacheLeaf``s: ``dp_size`` is the
+    size of the entry on dim 0 where that entry is the DP axes', else 1."""
+    def leaf(s, x):
+        spec = tuple(s.spec)
+        first = spec[0] if spec else None
+        names = first if isinstance(first, tuple) else (first,)
+        is_dp = first is not None and set(names) <= set(jrules.dp_axes)
+        return _CacheLeaf(spec, tuple(x.shape), jrules.dp_size if is_dp else 1)
+
+    return jax.tree.map(leaf, jrules.cache_shardings(jcache), jcache,
+                        is_leaf=lambda s: isinstance(s, JNamedSharding))
+
+
+def _unstack_cache(leaf):
+    """The port's spec for one layer of a stacked JAX cache leaf: a DP
+    entry on the stack moves to the first other dim that its size divides
+    and no entry holds (else it goes), then the stack's entry is dropped."""
+    spec = list(leaf.spec)
+    if spec and leaf.dp_size > 1:
+        for d in range(1, len(spec)):
+            if (spec[d] is None and leaf.shape[d] >= leaf.dp_size
+                    and leaf.shape[d] % leaf.dp_size == 0):
+                spec[0], spec[d] = None, spec[0]
+                break
+    return _drop(tuple(spec))
+
+
 def _port_layout(jtree, cfg, *, cache=False, n_layers=None, cycle=None):
-    """A JAX-layout tree (leaves: specs) in the port's layout: the cycles'
-    stacks un-stacked in layer order (their specs without the stack's
-    entry), a decode cache's layer dicts flattened."""
+    """A JAX-layout tree (leaves: specs, or ``_CacheLeaf``s of a decode
+    cache) in the port's layout: the cycles' stacks un-stacked in layer
+    order (their specs without the stack's entry, a cache's DP entry moved
+    off the stack), a decode cache's layer dicts flattened."""
+    if isinstance(jtree, _CacheLeaf):
+        return jtree.spec
     if isinstance(jtree, dict) and "cycles" in jtree:
         cycle = cycle or len(cfg.attn_pattern)
         n = (n_layers or cfg.n_layers) // cycle
@@ -232,6 +272,8 @@ def _port_layout(jtree, cfg, *, cache=False, n_layers=None, cycle=None):
         def conv(node, stacked):
             if isinstance(node, dict):
                 return {k: conv(v, stacked) for k, v in node.items()}
+            if isinstance(node, _CacheLeaf):
+                return _unstack_cache(node) if stacked else node.spec
             return _drop(node) if stacked else node
 
         cycles = jtree["cycles"] or []
@@ -298,7 +340,7 @@ def test_sharding_rules_match_jax(mesh_case, full_dp):
             jcfg, 8, 16, src))
         cache = transformer.init_decode_cache(cfg, 8, 16, src, device="meta")
         assert _port_specs(rules.cache_shardings(cache)) == _port_layout(
-            _jax_specs(jrules.cache_shardings(jcache)), cfg, cache=True), arch
+            _jax_cache_leaves(jrules, jcache), cfg, cache=True), arch
     batch = {"tokens": torch.zeros((8, 65), dtype=torch.int32),
              "mask": torch.zeros((3, 64))}
     jbatch = {k: jax.ShapeDtypeStruct(tuple(v.shape), jnp.float32)
@@ -311,7 +353,8 @@ def test_sharding_rules_match_jax(mesh_case, full_dp):
 def test_sharding_rules_on_a_stack_the_jax_rule_splits():
     """With 4 stacked layers on a 4-wide data axis, the JAX cache rule
     shards the stack over "data"; the port cannot split one layer's
-    tensor over layers, so that leaf is replicated over "data"."""
+    tensor over layers, so "data" moves to the batch of 8, the first other
+    dim it divides: a rank holds 1/4 of the cache, as under JAX."""
     jcfg, cfg = _configs("stablelm-1.6b", {"n_layers": 4})
     jmesh, mesh = jmake_mesh((4, 1), ("data", "model")), FakeMesh(
         (4, 1), ("data", "model"))
@@ -322,8 +365,53 @@ def test_sharding_rules_on_a_stack_the_jax_rule_splits():
     got = ShardingRules(cfg, mesh).cache_shardings(
         transformer.init_decode_cache(cfg, 8, 16, device="meta"))
     k0 = got["layers"][0]["k"]
-    assert k0.spec == jspec[1:] == (None, None, None, None)
-    assert [repr(p) for p in k0.placements] == ["Replicate()", "Replicate()"]
+    assert jspec[1:] == (None, None, None, None)
+    assert k0.spec == ("data", None, None, None)
+    assert [repr(p) for p in k0.placements] == ["Shard(dim=0)", "Replicate()"]
+
+
+def _bytes_a_rank(nbytes, spec, sizes):
+    names = [a for e in spec if e is not None
+             for a in (e if isinstance(e, tuple) else (e,))]
+    return nbytes / int(np.prod([sizes[a] for a in names]))
+
+
+@pytest.mark.parametrize("mesh_case", MESHES,
+                         ids=lambda m: "x".join(map(str, m[0])))
+def test_cache_bytes_a_rank_match_the_jax_layout(mesh_case):
+    """Where the JAX cache rule puts DP on a layer stack and another dim
+    takes it in the port, the port's layers of that stacked leaf hold as
+    many bytes a rank as the JAX leaf does."""
+    shape, names, _ = mesh_case
+    jmesh, mesh = jmake_mesh(shape, names), FakeMesh(shape, names)
+    sizes = dict(zip(names, shape))
+    moved = 0
+    for arch, change in RULE_ARCHS:
+        jcfg, cfg = _configs(arch, change)
+        src = 6 if cfg.is_encdec else 0
+        jcache = jax.eval_shape(lambda: jtransformer.init_decode_cache(
+            jcfg, 8, 16, src))
+        cache = transformer.init_decode_cache(cfg, 8, 16, src, device="meta")
+        jleaves = _jax_cache_leaves(JShardingRules(jcfg, jmesh), jcache)
+        port = ShardingRules(cfg, mesh).cache_shardings(cache)
+        cycle = len(cfg.attn_pattern)
+        n_stacked = cfg.n_layers // cycle * cycle
+        for j, pos in enumerate(jleaves["cycles"] or []):
+            for name, jl in ((k, v) for c in pos.values()
+                             for k, v in c.items()):
+                if _unstack_cache(jl) == _drop(jl.spec):
+                    continue   # no move: DP was not on the stack
+                moved += 1
+                stack = range(j, n_stacked, cycle)
+                itemsize = cache["layers"][j][name].element_size()
+                want = _bytes_a_rank(np.prod(jl.shape) * itemsize, jl.spec,
+                                     sizes)
+                got = sum(_bytes_a_rank(
+                    cache["layers"][i][name].numel() * itemsize,
+                    port["layers"][i][name].spec, sizes) for i in stack)
+                assert got == want, (arch, name)
+    if math.prod(n for a, n in sizes.items() if a != "model") > 1:
+        assert moved, "no cache leaf had DP on its stack"
 
 
 def test_placements_of_specs():

@@ -293,6 +293,37 @@ def test_engine_resolution_helpers(scene):
     assert engine.available_backends() == jengine.available_backends()
 
 
+class _Doubled:
+    """A backend that runs ``reference`` and doubles its output."""
+
+    def run(self, x, params, plan, *, use_kernel=True):
+        return 2 * engine.sparse_conv(x, params, engine.reference_plan(
+            plan.coir))
+
+
+def test_backends_alias_is_live_as_in_jax():
+    """``engine.BACKENDS`` and ``engine.api.BACKENDS`` are computed on
+    access from the default registry (``AUTO`` then its names), so a
+    backend registered after import shows, and goes when unregistered,
+    as ``tests/test_engine.py`` checks for the JAX package."""
+    from repro_torch.engine import api
+
+    assert engine.BACKENDS == api.BACKENDS == engine.available_backends()
+    assert engine.BACKENDS == jengine.BACKENDS
+    assert "BACKENDS" in engine.__all__
+    engine.register_backend("doubled", _Doubled())
+    try:
+        assert "doubled" in engine.BACKENDS and "doubled" in api.BACKENDS
+        assert engine.BACKENDS[0] == engine.AUTO
+    finally:
+        engine.default_registry().unregister("doubled")
+    assert "doubled" not in engine.BACKENDS
+    with pytest.raises(AttributeError):
+        engine.NOT_A_NAME  # noqa: B018
+    with pytest.raises(AttributeError):
+        api.NOT_A_NAME  # noqa: B018
+
+
 def test_quickstart_spade_path_matches_jax(scene):
     """The quickstart's SPADE step on the port's device-built COIR: the
     chosen tile height and the ``delta_i`` derived from it agree with JAX's

@@ -16,13 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.configs import get_config as jax_get_config
 from repro.configs import list_configs as jax_list_configs
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import mlp as jmlp
 from repro.models import transformer as jtransformer
-from repro_torch.configs import get_config, list_configs
+from repro_torch.configs import ARCH_NAMES, get_config, list_configs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash.flash import flash_attention
 from repro_torch.models import attention, common, mlp, transformer
@@ -62,6 +63,42 @@ def test_registry():
     assert list_configs() == jax_list_configs()
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("mamba-3b")
+
+
+def test_arch_names_match_jax():
+    """``configs.ARCH_NAMES`` is the JAX package's list, and the dry run
+    reads it from there."""
+    from repro_torch.launch import dryrun
+
+    assert ARCH_NAMES == JAX_ARCH_NAMES == list_configs()
+    assert dryrun.ARCH_NAMES is ARCH_NAMES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_layer_norm_matches_jax(dtype):
+    """f32 inside, the input's dtype out, eps 1e-6: within 1e-6 of the JAX
+    function in f32; in bf16 the same rounding of the same f32 result."""
+    rng = np.random.default_rng(2)
+    x = (rng.normal(size=(2, 5, 64)) * 3 + 1.5).astype(np.float32)
+    scale = rng.normal(size=(64,)).astype(np.float32)
+    bias = rng.normal(size=(64,)).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jcommon.layer_norm(jnp.asarray(x, jdt), jnp.asarray(scale),
+                              jnp.asarray(bias))
+    got = common.layer_norm(torch.from_numpy(x).to(dtype),
+                            torch.from_numpy(scale), torch.from_numpy(bias))
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        common.layer_norm(torch.from_numpy(x), torch.from_numpy(scale),
+                          torch.from_numpy(bias), eps=1e-3).numpy(),
+        np.asarray(jcommon.layer_norm(jnp.asarray(x), jnp.asarray(scale),
+                                      jnp.asarray(bias), eps=1e-3)),
+        rtol=1e-6, atol=1e-6)
 
 
 def test_rms_norm_and_softcap_match_jax():
