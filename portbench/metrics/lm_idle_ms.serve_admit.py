@@ -1,0 +1,8 @@
+"""Idle device ms a wave of the traced window whose innermost program span
+is ``serve.admit`` (the admission pass that formed a wave;
+``portbench.spans.idle_split``), over the traced waves."""
+from portbench.spans import idle_ms, per_wave
+
+
+def read(run):
+    return per_wave(run, idle_ms(run, "serve.admit"))

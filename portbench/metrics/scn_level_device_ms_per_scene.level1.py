@@ -1,0 +1,10 @@
+"""Device ms a scene of the forward's ``level1`` (level 1's encoder and
+decoder): the program's CUDA events captured in the bucket's graph at
+``apply_unet``'s level boundaries (``WaveStats.event_ms["level1"]``), over
+the traced waves' scenes."""
+from portbench.spans import event_ms, per_scene
+
+
+def read(run):
+    vals = event_ms(run, "level1")
+    return per_scene(run, None if vals is None else sum(vals))

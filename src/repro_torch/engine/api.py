@@ -139,6 +139,7 @@ def apply_unet(
     use_kernel: bool = True,
     device: str | torch.device = "cuda",
     ctx=None,
+    mark=None,
 ) -> torch.Tensor:
     """U-Net forward off an uploaded ScenePlan -> (V, n_classes) logits.
 
@@ -152,7 +153,16 @@ def apply_unet(
     runs whole through that backend's ``run_unet``, which reads the mesh
     of ``ctx`` (default: the ambient context); a ``backend=`` other than
     ``"auto"`` or that one raises, as in the JAX package.
+
+    ``mark`` (optional) is called at each level boundary of the forward,
+    in stream order, with the name of the stretch of work that ends there:
+    ``"start"``, ``"rows"`` (a wave plan's tables moved to each scene's
+    rows), ``"stem"``, ``"enc<i>"`` (level i's encoder blocks and its down
+    conv), ``"dec<i>"`` (the up conv into level i, the skip and its decoder
+    blocks), ``"head"``. The scene engine records a CUDA event
+    at each (``serving.scene_engine``).
     """
+    mark = mark or _no_mark
     scene_backend = getattr(plan, "scene_backend", None)
     if scene_backend is not None:
         if backend not in (AUTO, scene_backend):
@@ -170,21 +180,32 @@ def apply_unet(
     if model.head.w.device.type != dev.type:
         raise ValueError(f"model is on {model.head.w.device}, not {dev}")
     feats = torch.as_tensor(feats, dtype=model.head.w.dtype, device=dev)
+    mark("start")
     plan = _wave_rows(plan)
+    mark("rows")
     kw = dict(backend=backend, registry=registry, use_kernel=use_kernel)
     bn = dict(n_scenes=plan.n_scenes)
     x = sparse_conv(feats, model.stem.params, plan.levels[0].sub, **kw)
+    mark("stem")
     skips = []
-    for lvl, p in zip(plan.levels, model.levels):
+    for li, (lvl, p) in enumerate(zip(plan.levels, model.levels)):
         for blk in p.enc:
             x = conv_block(x, lvl.mask, lvl.sub, blk, **bn, **kw)
         if lvl.down is not None:
             skips.append(x)
             x = sparse_conv(x, p.down.params, lvl.down, **kw)
+        mark(f"enc{li}")
     for li in range(len(plan.levels) - 2, -1, -1):
         lvl, p = plan.levels[li], model.levels[li]
         up = sparse_conv(x, p.up.params, lvl.up, **kw)
         x = torch.cat([skips[li], up], dim=-1)
         for blk in p.dec:
             x = conv_block(x, lvl.mask, lvl.sub, blk, **bn, **kw)
-    return x @ model.head.w + model.head.b
+        mark(f"dec{li}")
+    out = x @ model.head.w + model.head.b
+    mark("head")
+    return out
+
+
+def _no_mark(name: str) -> None:
+    pass

@@ -6,7 +6,8 @@
   schedules on: ``tenant``, ``priority``, ``deadline_ms``, plus the
   lifecycle ``status`` ∈ {``queued``, ``running``, ``completed``,
   ``shed``, ``failed``} and timestamps the scheduler stamps
-  (``submit_ts`` at submit, ``done_ts`` at drain/shed).
+  (``submit_ts`` at submit, ``admit_ts`` at admission, ``done_ts`` at
+  drain/shed).
 * :class:`RequestHandle` — what ``submit()`` returns: a future-like view
   (``.done()``, ``.result(timeout=)``, ``.status``). ``result()`` drives
   the engine on the calling thread when nothing else is, or waits for the
@@ -73,6 +74,8 @@ class ServeRequest:
     status: str = field(default=QUEUED, kw_only=True)
     shed_reason: str | None = field(default=None, kw_only=True)
     submit_ts: float | None = field(default=None, kw_only=True)
+    #: when admission last put the request into a wave
+    admit_ts: float | None = field(default=None, kw_only=True)
     done_ts: float | None = field(default=None, kw_only=True)
     seq: int = field(default=-1, kw_only=True)
     #: retries charged so far (solo-wave failures only; see scheduler)

@@ -28,6 +28,20 @@ input that each graph reads and overwrites with its token, and the
 ``(B, max_new)`` token block. A decode step advances the cache buffers in
 place, recurrent states too, so each wave's replays start from its own
 prefill's state. On the CPU every step runs eagerly.
+
+Each wave's ``WaveStats`` carries the engine's spans inside the
+scheduler's (``serving.scheduler``): in ``serve.dispatch``, ``lm.prefill``
+(the prompts to the device and the prefill enqueued) and ``lm.decode``
+(the first token's argmax and the decode steps); in ``serve.drain``,
+``lm.wait`` (the host waits on an event recorded after the token block's
+copy), ``lm.readback`` (the block's copy to the host alone) and
+``lm.finish`` (EOS truncation), and counts the token block's
+``readback_bytes``. On the card, CUDA events at the prefill's start, at
+its first token (after the argmax) and after the last decode step give
+``event_ms["prefill"]`` and ``event_ms["decode"]``; the first token was
+ready on the host's clock ``event_ms["decode"]`` before the end of
+``lm.wait``, and each request's ``first_token_ms`` runs from its
+``submit_ts`` to then.
 """
 from __future__ import annotations
 
@@ -41,7 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import require_device
 from repro_torch.models.transformer import decode_step, forward
 from repro_torch.serving.api import AdmissionPolicy, ServeRequest, ServingBase
-from repro_torch.serving.graphs import Graphs
+from repro_torch.serving.graphs import Graphs, timing_event
 from repro_torch.serving.scheduler import WaveScheduler
 
 
@@ -127,7 +141,7 @@ class Engine(ServingBase):
         self._cache = self._tok = self._out = None
         self.scheduler = WaveScheduler(
             batch=batch, plan=self._plan_stage, dispatch=self._dispatch_stage,
-            drain=self._drain_stage, sync=sync, depth=depth,
+            drain=self._drain, sync=sync, depth=depth,
             planner_threads=planner_threads, policy=policy, faults=faults)
 
     # -- pipeline stages -----------------------------------------------------
@@ -143,36 +157,46 @@ class Engine(ServingBase):
     @torch.inference_mode()
     def _dispatch_stage(self, reqs: list[Request], rows,
                         stats) -> torch.Tensor:
+        """The wave's prefill and decode, enqueued -> its token block on
+        the device."""
         if self.max_new < 1:
             return torch.zeros((self.batch, 0), dtype=torch.int32,
                                device=self.device)
-        toks = np.zeros((self.batch, self.prompt_len), np.int32)
-        for i, row in enumerate(rows):
-            toks[i] = row
-        last_logits, cache = self.prefill(
-            self.params, torch.from_numpy(toks).to(self.device))
-        # early EOS exit needs a host sync per step, which would stall the
-        # async pipeline — only the blocking mode pays for it
-        check_eos = self.eos is not None and self.scheduler.running_sync
-        return self.decode(last_logits, cache,
-                           stop_rows=len(reqs) if check_eos else 0,
-                           notes=stats.notes)
+        with stats.span("lm.prefill"):
+            toks = np.zeros((self.batch, self.prompt_len), np.int32)
+            for i, row in enumerate(rows):
+                toks[i] = row
+            toks = torch.from_numpy(toks).to(self.device)
+            stats.pending["prefill"] = timing_event(self.device)
+            last_logits, cache = self.prefill(self.params, toks)
+        with stats.span("lm.decode"):
+            # early EOS exit needs a host sync per step, which would stall
+            # the async pipeline — only the blocking mode pays for it
+            check_eos = self.eos is not None and self.scheduler.running_sync
+            out = self.decode(last_logits, cache,
+                              stop_rows=len(reqs) if check_eos else 0,
+                              notes=stats.notes, stats=stats)
+        return out
 
     @torch.inference_mode()
     def decode(self, last_logits, cache, *, stop_rows: int = 0,
-               notes: dict | None = None) -> torch.Tensor:
+               notes: dict | None = None, stats=None) -> torch.Tensor:
         """Greedy tokens ``(batch, <= max_new)`` on the device after a
         prefill's ``(last_logits, cache)``: the prefill's token, then
         ``max_new - 1`` decode steps, as graph replays on the card and eager
         steps on the CPU. With ``stop_rows`` the steps stop early once each
         of the first ``stop_rows`` rows has emitted ``eos`` (a host read per
         step). On the card ``notes["graph_launches"]`` receives the kernel
-        launches the replays ran."""
+        launches the replays ran, and with ``stats`` (the wave's
+        ``WaveStats``) the first token's and the last step's events go to
+        ``stats.pending``."""
         tok = torch.argmax(last_logits[:, : self.cfg.vocab_size], -1)
         tok = tok.to(torch.int32)[:, None]
+        if stats is not None:
+            stats.pending["first_token"] = timing_event(self.device)
         if self.graphs is not None:
             return self._decode_graphs(tok, cache, stop_rows,
-                                       {} if notes is None else notes)
+                                       {} if notes is None else notes, stats)
         done = [False] * stop_rows
         emitted = [tok]
         for _ in range(self.max_new - 1):
@@ -196,8 +220,8 @@ class Engine(ServingBase):
         self._out[:, i + 1].copy_(nxt)
         self._tok.copy_(nxt[:, None])
 
-    def _decode_graphs(self, tok, cache, stop_rows: int,
-                       notes: dict) -> torch.Tensor:
+    def _decode_graphs(self, tok, cache, stop_rows: int, notes: dict,
+                       stats=None) -> torch.Tensor:
         """The decode steps as graph replays (captured on the first wave,
         after one eager warm-up step)."""
         first = self._cache is None
@@ -239,15 +263,49 @@ class Engine(ServingBase):
                     break
             self.graphs.replay(i)
             n += 1
+        last = timing_event(self.device)
         notes["graph_launches"] = dict(self.graphs.replayed - replayed)
         # a copy: the next wave's replays overwrite the block
-        return self._out[:, :n].clone()
+        out = self._out[:, :n].clone()
+        if stats is not None:
+            stats.pending.update(last=last, done=timing_event(self.device))
+        return out
+
+    def _drain(self, reqs: list[Request], emitted, stats) -> None:
+        """The scheduler's drain: wait for the wave, copy its token block
+        to the host, finish its requests (``_drain_stage``)."""
+        with stats.span("lm.wait") as wait:
+            done = stats.pending.get("done")
+            if done is not None:
+                done.synchronize()
+        with stats.span("lm.readback"):
+            emitted = emitted.cpu().numpy()
+            stats.readback_bytes += emitted.nbytes
+        with stats.span("lm.finish"):
+            self._drain_stage(reqs, emitted)
+            self._read_events(reqs, stats, wait.end_ms)
 
     def _drain_stage(self, reqs: list[Request], emitted) -> None:
-        emitted = emitted.cpu().numpy()
+        """Each request's tokens from the wave's block on the host, cut
+        after its EOS."""
         for i, r in enumerate(reqs):
             for t in emitted[i]:
                 r.out.append(int(t))
                 if self.eos is not None and int(t) == self.eos:
                     break
             r.done = True
+
+    @staticmethod
+    def _read_events(reqs: list[Request], stats, waited_ms: float) -> None:
+        """The wave's device ms from its events (``event_ms``) and each
+        request's time to its first token (``first_token_ms``): the token
+        was ready the decode's device time before the host saw the last
+        event done (``waited_ms``)."""
+        p = stats.pending
+        if p.get("last") is None:
+            return
+        stats.event_ms["prefill"] = p["prefill"].elapsed_time(
+            p["first_token"])
+        stats.event_ms["decode"] = p["first_token"].elapsed_time(p["last"])
+        ready = waited_ms - stats.event_ms["decode"]
+        stats.first_token_ms = tuple(ready - r.submit_ts for r in reqs)

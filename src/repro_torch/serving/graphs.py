@@ -21,6 +21,9 @@ counts for them: ``captured`` holds the counters' ticks made while
 capturing (launches recorded into a graph, not run), ``replayed`` the
 launches that replays ran. A path's launches are its counters' ticks, less
 ``captured``, plus ``replayed``.
+
+The engines time their device work with :func:`timing_event` s on the
+stream and read them once the drain has waited on the wave's last one.
 """
 from __future__ import annotations
 
@@ -36,6 +39,17 @@ from repro_torch.kernels.sspnna.sspnna import sspnna_fused, sspnna_tiles
 #: the kernel wrappers whose ``launches`` a graph's capture records
 COUNTED = {"sspnna_fused": sspnna_fused, "sspnna_tiles": sspnna_tiles,
            "flash_fwd": flash_attention, "moe_gemm": grouped_gemm}
+
+
+def timing_event(device: torch.device, *, external: bool = False):
+    """A CUDA timing event recorded now on the current stream, or None off
+    the card. ``external`` records it as a node of a graph being captured,
+    so that each replay records it again."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True, external=external)
+    ev.record()
+    return ev
 
 
 def _counts() -> Counter:

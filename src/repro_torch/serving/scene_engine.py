@@ -70,6 +70,22 @@ fetches each plan's memoized upload and enqueues the forward without a
 host sync; **drain** reads the wave's logits back. ``sync=False``
 pipelines them. Short waves are padded with the first scene's plan and
 zero features; padding slots are dropped.
+
+Each wave's ``WaveStats`` carries the engine's spans inside the
+scheduler's (``serving.scheduler``): in ``serve.dispatch``,
+``scene.upload`` (plan adoption, features to the device), ``scene.stage``
+(the wave's plans and features stacked into the bucket's buffers) and
+``scene.replay`` (the graph's replay; on the CPU, or a new bucket, the
+forward itself); in ``serve.drain``, ``scene.wait`` (the host waits on an
+event recorded after the replay's output was copied), ``scene.readback``
+(the logits' copy to the host alone) and ``scene.finish`` (reshape,
+scatter, argmax, breakers). The drain counts its ``readback_bytes``. On
+the card, CUDA events around the replay give ``event_ms["forward"]``, and
+events captured in the bucket's graph at ``apply_unet``'s level
+boundaries give ``event_ms["rows"]`` (the wave's tables moved to each
+scene's rows), ``["stem"]``, ``["level<i>"]`` (encoder and decoder of
+level i) and ``["head"]``; these are read only where no later replay of
+the graph was enqueued before the drain (always in sync mode).
 """
 from __future__ import annotations
 
@@ -95,7 +111,7 @@ from repro_torch.engine.plan import (
 )
 from repro_torch.engine.shard import ShardLayout, build_sharded_scene_plan_host
 from repro_torch.serving.api import AdmissionPolicy, ServeRequest, ServingBase
-from repro_torch.serving.graphs import Graphs
+from repro_torch.serving.graphs import Graphs, timing_event
 from repro_torch.serving.scheduler import WaveScheduler
 from repro_torch.sparse.tensor import SparseVoxelTensor, compact_to_capacity
 
@@ -262,7 +278,7 @@ class SceneEngine(ServingBase):
         self.graphs = Graphs(self.device) if self.device.type == "cuda" else None
         self.scheduler = WaveScheduler(
             batch=batch, plan=self._plan_stage, dispatch=self._dispatch_stage,
-            drain=self._drain_stage,
+            drain=self._drain,
             sync=ctx.sync if sync is None else sync,
             depth=ctx.depth if depth is None else depth,
             planner_threads=(ctx.planner_threads if planner_threads is None
@@ -489,19 +505,36 @@ class SceneEngine(ServingBase):
 
     @torch.inference_mode()
     def _dispatch_stage(self, reqs: list[SceneRequest], payloads, stats):
-        # the plan stage built (and counted) these host plans; adopt fetches
-        # the memoized upload without rebuilding or counting. Stream frames
-        # upload through their StreamPlanState's per-leaf identity memo
-        # instead, so a patched frame copies only the tables it changed.
-        plans = []
-        for r, (key, host, _, state) in zip(reqs, payloads):
-            if state is None:
-                plans.append(self.cache.adopt(key, host, device=self.device))
-            else:
-                plans.append(state.device_plan(host))
-                r.plan_info["upload"] = dict(state.last_upload)
-        if self.layout is not None:
-            return self._sharded_wave(reqs, plans, stats)
+        """The wave's device work, enqueued -> its logits on the device."""
+        with stats.span("scene.upload"):
+            # the plan stage built (and counted) these host plans; adopt
+            # fetches the memoized upload without rebuilding or counting.
+            # Stream frames upload through their StreamPlanState's per-leaf
+            # identity memo instead, so a patched frame copies only the
+            # tables it changed.
+            plans = []
+            for r, (key, host, _, state) in zip(reqs, payloads):
+                if state is None:
+                    plans.append(self.cache.adopt(key, host,
+                                                  device=self.device))
+                else:
+                    plans.append(state.device_plan(host))
+                    r.plan_info["upload"] = dict(state.last_upload)
+            if self.layout is None:
+                feats, cap = self._upload_feats(reqs, payloads, stats)
+        if self.layout is None:
+            logits = self.run_wave(feats, plans, cap,
+                                   rids=[r.rid for r in reqs],
+                                   notes=stats.notes, stats=stats)
+        else:
+            with stats.span("scene.replay"):
+                logits = self._sharded_wave(reqs, plans, stats)
+                stats.pending["done"] = timing_event(self.device)
+        return logits
+
+    def _upload_feats(self, reqs, payloads, stats) -> tuple:
+        """A batched or bucketed wave's features on the device, and its
+        bucket's capacity."""
         if self.family is not None:
             # admission admits one bucket a wave; a mixed wave means the
             # bucket hook was bypassed
@@ -526,14 +559,13 @@ class SceneEngine(ServingBase):
         dtype = self.model.head.w.dtype
         feats = [torch.as_tensor(f, dtype=dtype, device=self.device)
                  for _, _, f, _ in payloads]
-        return self.run_wave(feats, plans, cap, rids=[r.rid for r in reqs],
-                             notes=stats.notes)
+        return feats, cap
 
-    def _apply(self, feats, plan) -> torch.Tensor:
+    def _apply(self, feats, plan, mark=None) -> torch.Tensor:
         return engine_api.apply_unet(
             self.model, feats, plan, backend=self.backend,
             registry=self.ctx.registry, use_kernel=self.use_kernel,
-            device=self.device, ctx=self.ctx)
+            device=self.device, ctx=self.ctx, mark=mark)
 
     def _sharded_wave(self, reqs, plans, stats) -> torch.Tensor:
         """A sharded wave: each scene's sharded forward, eagerly, after
@@ -561,7 +593,8 @@ class SceneEngine(ServingBase):
 
     @torch.inference_mode()
     def run_wave(self, feats: list, plans: list, capacity: int, *,
-                 rids=None, notes: dict | None = None) -> torch.Tensor:
+                 rids=None, notes: dict | None = None,
+                 stats=None) -> torch.Tensor:
         """Logits ``(batch * capacity, n_classes)`` of one wave: up to
         ``batch`` scenes' features (on the device) and uploaded plans, all
         of bucket ``capacity`` and of one plan signature; a short wave is
@@ -570,7 +603,22 @@ class SceneEngine(ServingBase):
         of (``capacity``, the plans' signature), captured on that pair's
         first wave, and ``notes["graph_launches"]`` receives the kernel
         launches it ran. A plan whose signature differs from the wave's
-        raises."""
+        raises. With ``stats`` (the wave's ``WaveStats``) the staging and
+        the replay are its spans ``scene.stage`` and ``scene.replay``."""
+        if stats is None:
+            return self._replay(*self._stage(feats, plans, capacity, rids),
+                                notes=notes)
+        with stats.span("scene.stage"):
+            staged = self._stage(feats, plans, capacity, rids)
+        with stats.span("scene.replay"):
+            return self._replay(*staged, notes=notes, stats=stats)
+
+    def _stage(self, feats: list, plans: list, capacity: int,
+               rids=None) -> tuple:
+        """Check a wave (``run_wave``) and put its padded plans and
+        features where its forward reads them -> ``(graph key, buffers)``:
+        on the card the bucket's buffers (filled in place once its graph
+        exists), on the CPU the stacked wave."""
         rids = list(range(len(plans))) if rids is None else rids
         want = (capacity, self.model.stem.weight.shape[1])
         for rid, f in zip(rids, feats):
@@ -590,26 +638,83 @@ class SceneEngine(ServingBase):
         while len(plans) < self.batch:  # pad the wave to fixed batch
             plans.append(plans[0])
             feats.append(torch.zeros_like(feats[0]))
-        notes = {} if notes is None else notes
-        notes["graph_launches"] = {}
         if self.graphs is None:
-            return self._apply(torch.cat(feats), stack_plans(plans))
+            return key, {"plan": stack_plans(plans), "feats": torch.cat(feats)}
         if key not in self.graphs:
             bucket["plan"] = stack_plans(plans)
             bucket["feats"] = torch.cat(feats)
-            self._apply(bucket["feats"], bucket["plan"])  # warm-up
-            self.graphs.capture(
-                key, lambda: self._apply(bucket["feats"], bucket["plan"]))
         else:
             stack_plans(plans, out=bucket["plan"])
             torch.cat(feats, out=bucket["feats"])
+        return key, bucket
+
+    def _replay(self, key, bucket: dict, *, notes: dict | None = None,
+                stats=None) -> torch.Tensor:
+        """The forward of a staged wave (``_stage``): eagerly on the CPU,
+        else the replay of ``key``'s graph, captured first if new. With
+        ``stats``, the replay's timing events go to ``stats.pending``."""
+        notes = {} if notes is None else notes
+        notes["graph_launches"] = {}
+        if self.graphs is None:
+            return self._apply(bucket["feats"], bucket["plan"])
+        if key not in self.graphs:
+            self._apply(bucket["feats"], bucket["plan"])  # warm-up
+            marks = []
+
+            def mark(name: str) -> None:
+                marks.append((name, timing_event(self.device, external=True)))
+
+            self.graphs.capture(
+                key, lambda: self._apply(bucket["feats"], bucket["plan"],
+                                         mark))
+            bucket["marks"] = marks
+        start = timing_event(self.device)
         logits = self.graphs.replay(key)
+        end = timing_event(self.device)
         notes["graph_launches"] = dict(self.graphs.launches(key))
         # a copy: the next wave's replay overwrites the graph's output
-        return logits.clone()
+        logits = logits.clone()
+        if stats is not None:
+            stats.pending.update(start=start, end=end, marks=bucket["marks"],
+                                 replays=self.graphs.replays,
+                                 done=timing_event(self.device))
+        return logits
+
+    def _read_events(self, stats) -> None:
+        """The wave's device ms from its events (``event_ms``), once the
+        drain has waited on the last of them."""
+        p = stats.pending
+        if p.get("start") is None:
+            return
+        stats.event_ms["forward"] = p["start"].elapsed_time(p["end"])
+        marks = p["marks"]
+        if not marks or self.graphs.replays != p["replays"]:
+            return  # a later replay has re-recorded the graph's events
+        prev = marks[0][1]
+        for name, ev in marks[1:]:
+            seg = (name if name in ("rows", "stem", "head")
+                   else f"level{name[3:]}")
+            stats.event_ms[seg] = (stats.event_ms.get(seg, 0.0)
+                                   + prev.elapsed_time(ev))
+            prev = ev
+
+    def _drain(self, reqs: list[SceneRequest], logits, stats) -> None:
+        """The scheduler's drain: wait for the wave, copy its logits to the
+        host, finish its requests (``_drain_stage``)."""
+        with stats.span("scene.wait"):
+            done = stats.pending.get("done")
+            if done is not None:
+                done.synchronize()
+            self._read_events(stats)
+        with stats.span("scene.readback"):
+            logits = logits.cpu().numpy()
+            stats.readback_bytes += logits.nbytes
+        with stats.span("scene.finish"):
+            self._drain_stage(reqs, logits)
 
     def _drain_stage(self, reqs: list[SceneRequest], logits) -> None:
-        logits = logits.cpu().numpy()
+        """Each request's logits and classes from the wave's, on the
+        host."""
         logits = logits.reshape(self.batch, -1, logits.shape[-1])
         for i, r in enumerate(reqs):
             if isinstance(r, StreamFrameRequest):

@@ -18,7 +18,7 @@ and per-wave timing; the engines plug in the three stage callbacks:
 
     plan(request) -> payload               # host-only, thread-safe
     dispatch(requests, payloads, stats) -> h  # enqueue device work, no block
-    drain(requests, h) -> None             # block on h, fill request results
+    drain(requests, h, stats) -> None      # block on h, fill request results
 
 ``stats`` is the wave's ``WaveStats``; dispatch may record engine-specific
 observations in ``stats.notes`` (e.g. the sharded scene engine records the
@@ -80,16 +80,41 @@ actually had to wait for, ``overlap_frac = 1 - wait/span`` the fraction
 hidden behind device execution (0 in sync mode by construction);
 ``queue_depth`` / ``bucket`` / ``fill_frac`` / ``n_shed`` describe what
 admission saw and decided. ``slo_stats()`` aggregates the per-request
-view: p50/p99 latency, deadline goodput, shed counts.
+view: p50/p99 latency, the highest quantile the sample supports, deadline
+goodput, shed counts.
+
+**Spans.** Each wave's stages are :class:`Span` s on its ``WaveStats``
+(``spans``, in the order they opened), on the host's clock: ``serve.admit``
+(the admission pass that formed the wave), ``serve.plan`` (one a request,
+on whichever thread planned it), ``serve.plan_wait`` (async mode: the
+dispatcher waiting on the wave's plan futures), ``serve.dispatch`` and
+``serve.drain``; the engines open theirs inside the last two
+(``scene.*``, ``lm.*``). A span's parent is the innermost span of the same
+wave open on the same thread. The stage timers are read off the spans:
+``plan_ms`` sums the ``serve.plan`` spans, ``plan_span_ms`` is their
+envelope, ``dispatch_ms``/``drain_ms`` are those spans, ``device_ms`` runs
+from the dispatch's start to the drain's end. While a ``torch.profiler``
+records, each span is also a ``record_function`` range of its name, so it
+lies in the device trace on the profiler's clock;
+otherwise a span costs two clock reads. A failed wave's open spans are
+closed when the failure is handled (a stage abandoned by the watchdog
+included), and its ``WaveStats`` lands on ``failed_stats``.
+
+Besides the spans, a wave keeps ``readback_bytes`` (device to host in the
+drain) and per request ``queue_wait_ms`` (``submit_ts`` to ``admit_ts``,
+which admission stamps). The engines put the device times they measure
+with their own CUDA events in ``event_ms`` (empty on the CPU).
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from collections import deque
 from collections.abc import Callable, Mapping, Sequence
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutureTimeout
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 from repro_torch.analysis.runtime import ordered_lock
@@ -151,10 +176,65 @@ class AdmissionPolicy:
         return max(float(w), 1e-9)
 
 
+@dataclass(eq=False)
+class Span:
+    """One stage of one wave on the host's clock (``time.perf_counter``,
+    ms). ``parent`` is the index in ``WaveStats.spans`` of the innermost
+    span of the wave open on the same thread when this one opened (-1 at
+    the top); ``rid`` is the request's id where the span belongs to one
+    request. ``end_ms`` is None while the span is open."""
+
+    name: str
+    start_ms: float
+    end_ms: float | None = None
+    parent: int = -1
+    wave: int = -1
+    rid: object = None
+    index: int = field(default=-1, repr=False)
+    thread: int = field(default=0, repr=False)
+    _range: object = field(default=None, repr=False)
+
+    @property
+    def ms(self) -> float:
+        return self.end_ms - self.start_ms
+
+    def end(self) -> None:
+        """End the span now (if still open); on its own thread, also exit
+        its profiler range."""
+        if self.end_ms is None:
+            self.end_ms = _now_ms()
+        if self._range is not None and self.thread == threading.get_ident():
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while a
+    ``torch.profiler`` records, else None. The check is torch's own flag for
+    it (``torch.autograd.profiler._is_profiler_enabled``); no profiler can
+    record before torch is loaded, so the scheduler never imports it."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rng = prof.record_function(name)
+    rng.__enter__()
+    return rng
+
+
+def _open_span(name: str, rid=None) -> Span:
+    """A span opened now on the calling thread (a ``record_function``
+    range too while a profiler records)."""
+    sp = Span(name, 0.0, rid=rid, thread=threading.get_ident(),
+              _range=_profiler_range(name))
+    sp.start_ms = _now_ms()
+    return sp
+
+
 @dataclass
 class WaveStats:
     """Timing of one wave through the plan/dispatch/drain stages (ms),
-    plus what admission saw when it formed the wave."""
+    plus what admission saw when it formed the wave, its spans and its
+    counters (module docstring)."""
 
     wave: int
     rids: tuple
@@ -172,15 +252,103 @@ class WaveStats:
     #: engine-specific observations the dispatch stage records (e.g. the
     #: sharded scene engine's per-shard plan builds / halo rows)
     notes: dict = field(default_factory=dict)
+    #: the wave's stages, in the order they opened
+    spans: list = field(default_factory=list)
+    readback_bytes: int = 0    # device -> host bytes the drain brought back
+    #: per admitted request (wave order): submit_ts -> admit_ts (ms)
+    queue_wait_ms: tuple = ()
+    #: device ms the engine timed with its own CUDA events, read in the
+    #: drain after its wait (empty on the CPU)
+    event_ms: dict = field(default_factory=dict)
+    #: LM, per request (wave order): submit_ts -> the first token on the
+    #: host's clock (ms; empty on the CPU)
+    first_token_ms: tuple = ()
+    #: the engine's CUDA events between its dispatch and its drain
+    pending: dict = field(default_factory=dict, repr=False)
+    _open: dict = field(default_factory=dict, repr=False)
+    # planner threads add spans at once
+    _lock: object = field(default_factory=threading.Lock, repr=False,
+                          compare=False)
 
     @property
     def overlap_frac(self) -> float:
         """Fraction of plan wall-clock hidden behind device execution."""
         return overlap_fraction(self.plan_span_ms, self.plan_wait_ms)
 
+    def _adopt(self, sp: Span, stack: list | None) -> None:
+        sp.wave = self.wave
+        sp.parent = stack[-1].index if stack else -1
+        with self._lock:
+            sp.index = len(self.spans)
+            self.spans.append(sp)
+
+    @contextmanager
+    def span(self, name: str, rid=None):
+        """``with stats.span(name):`` a span of this wave around the
+        block, on the calling thread."""
+        sp = _open_span(name, rid)
+        stack = self._open.setdefault(sp.thread, [])
+        self._adopt(sp, stack)
+        stack.append(sp)
+        try:
+            yield sp
+        finally:
+            stack.remove(sp)
+            sp.end()
+
+    def add_span(self, sp: Span) -> None:
+        """End ``sp`` (opened before the wave existed, by
+        :func:`_open_span`) as a top-level span of this wave."""
+        self._adopt(sp, None)
+        sp.end()
+
+    def close_open(self) -> None:
+        """End every span still open now: a failed stage's, including one
+        a watchdog abandoned on its thread (that thread still exits the
+        span's profiler range when it returns)."""
+        now = _now_ms()
+        for sp in self.spans:
+            if sp.end_ms is None:
+                sp.end_ms = now
+
+    def span_ms(self, name: str) -> float:
+        """Summed ms of the closed spans named ``name``, in span order."""
+        return sum(sp.end_ms - sp.start_ms for sp in self.spans
+                   if sp.name == name and sp.end_ms is not None)
+
+    def named(self, name: str) -> list[Span]:
+        return [sp for sp in self.spans if sp.name == name]
+
 
 def _now_ms() -> float:
     return time.perf_counter() * 1e3
+
+
+def _queue_waits(reqs: list) -> tuple:
+    """submit_ts -> admit_ts (ms) of each request that carries both."""
+    out = []
+    for r in reqs:
+        t0 = getattr(r, "submit_ts", None)
+        t1 = getattr(r, "admit_ts", None)
+        if t0 is not None and t1 is not None:
+            out.append(t1 - t0)
+    return tuple(out)
+
+
+#: (name, quantile) of the tail quantiles ``slo_stats`` may report, highest
+#: first
+_TAILS = (("p99", 0.99), ("p90", 0.90), ("p50", 0.50))
+
+
+def _tail(sorted_vals: list[float]) -> dict:
+    """The highest quantile of ``_TAILS`` that has at least ten values
+    beyond it, with the number of values."""
+    n = len(sorted_vals)
+    for name, q in _TAILS:
+        if n * (1.0 - q) >= 10.0 - 1e-9:
+            return {"tail_q": name, "tail_ms": _percentile(sorted_vals, q),
+                    "tail_n": n}
+    return {"tail_q": None, "tail_ms": None, "tail_n": n}
 
 
 def _percentile(sorted_vals: list[float], q: float) -> float:
@@ -252,6 +420,8 @@ class WaveScheduler:
         self.shed: list = []
         self.failed: list = []
         self.stats: list[WaveStats] = []
+        #: ``WaveStats`` of the waves that failed, their spans closed
+        self.failed_stats: list[WaveStats] = []
         self.retries_charged = 0   # total solo-wave retries granted
         self.wave_errors = 0       # total contained wave failures
         self.last_wave_ts: float | None = None  # monotonic, last _finish
@@ -327,6 +497,11 @@ class WaveScheduler:
             r.status = status
         except (AttributeError, TypeError):
             return
+        if status == RUNNING:
+            try:
+                r.admit_ts = _now_ms()
+            except (AttributeError, TypeError):
+                pass
         if status in (COMPLETED, SHED, FAILED):
             try:
                 r.done_ts = _now_ms()
@@ -583,18 +758,39 @@ class WaveScheduler:
             raise box["error"]
         return box["result"]
 
-    def _new_stats(self, reqs: list, sync: bool) -> WaveStats:
+    def _new_stats(self, reqs: list, sync: bool,
+                   admit: Span | None = None) -> WaveStats:
         info = self._admit_info
         st = WaveStats(self._wave, tuple(getattr(r, "rid", None)
                                          for r in reqs), sync,
                        queue_depth=info.get("queue_depth", len(reqs)),
                        n_shed=info.get("n_shed", 0),
                        bucket=info.get("bucket"),
-                       fill_frac=len(reqs) / self.batch)
+                       fill_frac=len(reqs) / self.batch,
+                       queue_wait_ms=_queue_waits(reqs))
+        if admit is not None:
+            st.add_span(admit)
         self._wave += 1
         return st
 
+    def _admit_wave(self) -> tuple[list, Span]:
+        """``_admit`` inside a ``serve.admit`` span (kept by the wave it
+        forms)."""
+        sp = _open_span("serve.admit")
+        try:
+            return self._admit(), sp
+        except BaseException:
+            sp.end()
+            raise
+
+    def _failed(self, st: WaveStats) -> None:
+        """Keep a failed wave's stats, every span of it closed."""
+        st.close_open()
+        st.pending.clear()
+        self.failed_stats.append(st)
+
     def _finish(self, reqs: list, st: WaveStats) -> None:
+        st.pending.clear()
         self.stats.append(st)
         self.last_wave_ts = time.monotonic()
         for r in reqs:
@@ -619,7 +815,14 @@ class WaveScheduler:
         """Per-request SLO view over everything served (or shed) so far:
         p50/p99 end-to-end latency (submit -> drain, ms), deadline goodput
         (completions that met their deadline, as a fraction of everything
-        submitted and as completions/s), and shed counts by reason."""
+        submitted and as completions/s), and shed counts by reason.
+
+        Over few completions ``p99_ms`` is in effect their maximum, so
+        ``tail_q`` / ``tail_ms`` give the highest of p50, p90 and p99 with
+        at least ten completions beyond it (p99 from 1000 completions, p90
+        from 100, p50 from 20; None below that), and ``tail_n`` the number
+        of latencies it was read from. The JAX scheduler reports p50/p99
+        only."""
         lats = []
         met = 0
         for r in self.completed:
@@ -651,6 +854,7 @@ class WaveScheduler:
             "shed_by_reason": shed_by_reason,
             "p50_ms": _percentile(lats, 0.50),
             "p99_ms": _percentile(lats, 0.99),
+            **_tail(lats),
             "goodput_frac": met / n_total if n_total else 0.0,
             "goodput_rps": met / wall_s if wall_s > 0 else 0.0,
         }
@@ -684,59 +888,65 @@ class WaveScheduler:
             self.on_idle(self)
         return self.completed
 
-    def _timed_plan(self, req):
-        t0 = _now_ms()
-        inj = self.faults
-        if inj is not None:
-            rid = getattr(req, "rid", None)
-            inj.maybe_fail("worker_death", rid=rid)
-            inj.maybe_fail("plan", rid=rid)
-        payload = self._plan(req)
-        return payload, t0, _now_ms()
+    def _timed_plan(self, req, st: WaveStats):
+        rid = getattr(req, "rid", None)
+        with st.span("serve.plan", rid=rid) as sp:
+            inj = self.faults
+            if inj is not None:
+                inj.maybe_fail("worker_death", rid=rid)
+                inj.maybe_fail("plan", rid=rid)
+            payload = self._plan(req)
+        return payload, sp
 
     def _dispatch_with_faults(self, reqs, payloads, st):
-        inj = self.faults
-        if inj is not None:
-            stall = inj.stall_ms(key=("wave", st.wave))
-            if stall > 0:
-                time.sleep(stall / 1e3)
-            inj.maybe_fail("dispatch", key=("wave", st.wave))
-        return self._dispatch(reqs, payloads, st)
+        with st.span("serve.dispatch"):
+            inj = self.faults
+            if inj is not None:
+                stall = inj.stall_ms(key=("wave", st.wave))
+                if stall > 0:
+                    time.sleep(stall / 1e3)
+                inj.maybe_fail("dispatch", key=("wave", st.wave))
+            return self._dispatch(reqs, payloads, st)
+
+    def _drain_timed(self, reqs, handle, st: WaveStats) -> None:
+        """The drain in its span; sets ``drain_ms`` and ``device_ms``."""
+        with st.span("serve.drain") as sp:
+            self._drain(reqs, handle, st)
+        st.drain_ms = sp.ms
+        st.device_ms = sp.end_ms - st.named("serve.dispatch")[0].start_ms
 
     def _run_sync(self, max_waves: int | None = None) -> None:
         waves_left = max_waves if max_waves is not None else float("inf")
         budget = self.policy.stage_timeout_s if self.policy is not None \
             else None
         while self.queue and waves_left > 0:
-            reqs = self._admit()
+            reqs, admit = self._admit_wave()
             if not reqs:  # everything shed, or every request backing off
+                admit.end()
                 if self.queue:
                     self._idle_wait()
                 continue
             waves_left -= 1
-            st = self._new_stats(reqs, sync=True)
+            st = self._new_stats(reqs, sync=True, admit=admit)
             stage = "plan"
             try:
                 payloads = []
                 for r in reqs:
-                    payload, t0, t1 = self._with_timeout(
-                        self._timed_plan, (r,), budget, "plan")
+                    payload, _ = self._with_timeout(
+                        self._timed_plan, (r, st), budget, "plan")
                     payloads.append(payload)
-                    st.plan_ms += t1 - t0
+                st.plan_ms = st.span_ms("serve.plan")
                 st.plan_span_ms = st.plan_ms   # serial builds
                 st.plan_wait_ms = st.plan_span_ms  # nothing hidden in sync
                 stage = "dispatch"
-                t_disp = _now_ms()
                 handle = self._with_timeout(
                     self._dispatch_with_faults, (reqs, payloads, st),
                     budget, "dispatch")
-                st.dispatch_ms = _now_ms() - t_disp
+                st.dispatch_ms = st.span_ms("serve.dispatch")
                 stage = "drain"
-                t_drain = _now_ms()
-                self._drain(reqs, handle)
-                st.drain_ms = _now_ms() - t_drain
-                st.device_ms = _now_ms() - t_disp
+                self._drain_timed(reqs, handle, st)
             except BaseException as e:
+                self._failed(st)
                 if self._contained and self._containable(e):
                     self._handle_wave_failure(reqs, e, stage)
                     continue
@@ -786,7 +996,7 @@ class WaveScheduler:
         budget = self.policy.stage_timeout_s if self.policy is not None \
             else None
         planned: deque = deque()   # (reqs, stats, [plan futures])
-        inflight: deque = deque()  # (reqs, stats, handle, t_dispatched)
+        inflight: deque = deque()  # (reqs, stats, handle)
         failed: list = []          # requests of the wave that blew up
         futs: list = []            # plan futures of the wave being gathered
         try:
@@ -795,16 +1005,17 @@ class WaveScheduler:
                 # keep up to `depth` waves in the plan stage
                 while (self.queue and waves_left > 0
                        and len(planned) < self.depth):
-                    reqs = self._admit()
+                    reqs, admit = self._admit_wave()
                     if not reqs:
+                        admit.end()
                         # shedding emptied the queue, or every queued
                         # request is backing off — don't spin the fill loop
                         break
                     progressed = True
                     waves_left -= 1
                     failed = reqs  # cover the gap until safely planned
-                    st = self._new_stats(reqs, sync=False)
-                    wave_futs = [pool.submit(self._timed_plan, r)
+                    st = self._new_stats(reqs, sync=False, admit=admit)
+                    wave_futs = [pool.submit(self._timed_plan, r, st)
                                  for r in reqs]
                     planned.append((reqs, st, wave_futs))
                     failed = []
@@ -817,33 +1028,35 @@ class WaveScheduler:
                     failed = reqs
                     stage = "plan"
                     try:
-                        t_gather = _now_ms()
-                        payloads, starts, ends = [], [], []
-                        for f in futs:
-                            try:
-                                payload, t0, t1 = f.result(timeout=budget)
-                            except (_FutureTimeout, TimeoutError) as te:
-                                raise StageTimeout(
-                                    f"plan stage exceeded {budget:.3f}s "
-                                    f"watchdog") from te
-                            payloads.append(payload)
-                            st.plan_ms += t1 - t0
-                            starts.append(t0)
-                            ends.append(t1)
-                        if ends:
-                            st.plan_span_ms = max(ends) - min(starts)
-                        st.plan_wait_ms = _now_ms() - t_gather
+                        payloads, spans = [], []
+                        with st.span("serve.plan_wait") as wait:
+                            for f in futs:
+                                try:
+                                    payload, sp = f.result(timeout=budget)
+                                except (_FutureTimeout, TimeoutError) as te:
+                                    raise StageTimeout(
+                                        f"plan stage exceeded {budget:.3f}s "
+                                        f"watchdog") from te
+                                payloads.append(payload)
+                                spans.append(sp)
+                        st.plan_ms = sum(sp.ms for sp in spans)
+                        if spans:
+                            st.plan_span_ms = (
+                                max(sp.end_ms for sp in spans)
+                                - min(sp.start_ms for sp in spans))
+                        st.plan_wait_ms = wait.ms
                         stage = "dispatch"
-                        t_disp = _now_ms()
                         handle = self._with_timeout(
                             self._dispatch_with_faults, (reqs, payloads, st),
                             budget, "dispatch")
-                        st.dispatch_ms = _now_ms() - t_disp
-                        inflight.append((reqs, st, handle, t_disp))
+                        st.dispatch_ms = st.span_ms("serve.dispatch")
+                        inflight.append((reqs, st, handle))
                     except BaseException as e:
                         if not (contained and self._containable(e)):
+                            self._failed(st)
                             raise
                         self._settle(futs)
+                        self._failed(st)
                         self._handle_wave_failure(reqs, e, stage)
                     failed = []
                     futs = []
@@ -858,6 +1071,7 @@ class WaveScheduler:
                     try:
                         self._drain_one(item)
                     except BaseException as e:
+                        self._failed(item[1])
                         if not (contained and self._containable(e)):
                             raise
                         self._handle_wave_failure(item[0], e, "drain")
@@ -878,6 +1092,7 @@ class WaveScheduler:
                 try:
                     self._drain_one(item)
                 except BaseException:
+                    self._failed(item[1])
                     leftovers.append(item[0])
             leftovers.append(failed)
             for reqs, _, wave_futs in planned:
@@ -888,10 +1103,6 @@ class WaveScheduler:
             raise
 
     def _drain_one(self, item) -> None:
-        reqs, st, handle, t_disp = item
-        t0 = _now_ms()
-        self._drain(reqs, handle)
-        t1 = _now_ms()
-        st.drain_ms = t1 - t0
-        st.device_ms = t1 - t_disp
+        reqs, st, handle = item
+        self._drain_timed(reqs, handle, st)
         self._finish(reqs, st)

@@ -905,6 +905,62 @@ def test_scene_engine_graph_replay_matches_eager_wave(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
+def test_serving_waves_time_their_device_work(cuda_device, sync):
+    """The engines' own CUDA events on the card: a scene wave's forward
+    and, where no later replay re-recorded them, the levels of the
+    bucket's graph, which lie inside the forward and miss of it only the
+    graph's start on the device, a fixed cost; an LM wave's prefill and
+    decode, and each request's first token before its last."""
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    cfg = SCN_SERVE_CFG
+    scenes = [_serve_scene(s) for s in (310, 311)]
+    eng = SceneEngine(cfg, SCNUNet(cfg, device=cuda_device), 2,
+                      spec=engine.build_plan_spec(scenes, cfg),
+                      ctx=engine.ExecutionContext(device=cuda_device),
+                      sync=sync)
+    eng.submit([SceneRequest(i, scenes[i % 2]) for i in range(6)])
+    eng.serve()
+    eng.close()
+    segs = {"rows", "stem", "head"} | {f"level{i}"
+                                       for i in range(len(cfg.widths))}
+    assert eng.graphs.replays == len(eng.wave_stats) == 3
+    for st in eng.wave_stats:
+        assert st.pending == {}
+        assert st.readback_bytes == 2 * cfg.capacity * cfg.n_classes * 4
+        forward = st.event_ms["forward"]
+        assert forward > 0
+        if len(st.event_ms) > 1:
+            assert set(st.event_ms) == segs | {"forward"}
+            levels = sum(v for k, v in st.event_ms.items() if k != "forward")
+            assert forward - 1.0 <= levels <= forward + 0.005, (levels,
+                                                                forward)
+    assert len(eng.wave_stats[-1].event_ms) > 1   # the last replay's levels
+
+    lm_cfg = get_config("stablelm-1.6b").reduced()
+    params = transformer.init_lm(
+        lm_cfg, device=cuda_device,
+        generator=torch.Generator(device=cuda_device).manual_seed(0))
+    lm = Engine(lm_cfg, params, 2, 16, 4, device=cuda_device, sync=sync)
+    rng = np.random.default_rng(2)
+    handles = lm.submit([Request(i, rng.integers(1, 100, 9).astype(np.int32))
+                         for i in range(4)])
+    lm.serve()
+    lm.close()
+    assert lm.graphs.replays == 3 * len(lm.wave_stats)
+    for st in lm.wave_stats:
+        assert st.event_ms["prefill"] > 0 and st.event_ms["decode"] > 0
+        assert len(st.first_token_ms) == 2
+    for h in handles:
+        r = h.result()
+        (st,) = [w for w in lm.wave_stats if r.rid in w.rids]
+        first = st.first_token_ms[st.rids.index(r.rid)]
+        assert r.admit_ts - r.submit_ts < first < r.latency_ms
+
+
+@pytest.mark.cuda
 def test_scene_engine_streams_through_the_bucket_graph(cuda_device):
     """Two interleaved LiDAR streams on a pinned spec, served on the card:
     every wave (one frame of each stream) is a replay of the bucket's one

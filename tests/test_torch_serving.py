@@ -101,7 +101,7 @@ def _waves(mod, policy, reqs, batch=2):
     sched = mod.WaveScheduler(
         batch=batch, plan=lambda r: r.rid,
         dispatch=lambda rs, payloads, st: payloads,
-        drain=lambda rs, h: waves.append(tuple(h)), policy=policy)
+        drain=lambda rs, h, *_: waves.append(tuple(h)), policy=policy)
     sched.submit(reqs)
     sched.run()
     return waves, [(r.rid, r.shed_reason) for r in sched.shed]

@@ -763,7 +763,7 @@ def test_stream_fifo_admission_under_policy():
     sched = WaveScheduler(
         batch=2, plan=lambda r: None,
         dispatch=lambda reqs, p, st: order.extend(r.rid for r in reqs),
-        drain=lambda reqs, h: None,
+        drain=lambda reqs, h, st: None,
         policy=AdmissionPolicy())
     reqs = []
     for fno, prio in [(0, 0), (1, 5), (2, 10)]:  # later frames more urgent
