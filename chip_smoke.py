@@ -1622,7 +1622,7 @@ def scn_serving_path(dev: torch.device, phase: Phases, model, cfg):
         def graph():
             return eng.run_wave(feats, plans, cfg.capacity)
 
-        _, g_err = max_err(graph(), eager())
+        _, g_err = max_err(graph()[0], eager())
         check(g_err <= 1e-5, "graph replay and eager wave disagree")
         times = {}
         for name, fn in (("eager", eager), ("graph", graph)):

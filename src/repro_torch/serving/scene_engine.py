@@ -16,7 +16,8 @@ backend registry and the default admission policy. Three modes:
   smallest capacity bucket its active voxels fit at submit time (a scene
   over every bucket is shed with reason ``"capacity"``); the plan stage
   re-packs it to that capacity, admission fills each wave from one bucket,
-  and the drain scatters the logits back to the request's rows.
+  and the drain scatters the logits and classes back to the request's
+  rows.
 * **sharded** (``layout=pin_halo(rep_scenes, cfg, ShardLayout(...))``):
   each scene's capacity split over the layout's shards
   (``engine.shard``). The plan stage builds the per-shard tables; a wave
@@ -36,8 +37,8 @@ order while the policy still arbitrates between streams and one-shot
 requests. A frame's plan is uploaded through its stream's per-leaf memo
 (only the tables the delta touched are copied), its features are re-packed
 into the stream's canonical rows, and its wave runs the same bucket graph
-as one-shot scenes of that capacity; the drain scatters the logits back to
-the caller's rows. Each wave's ``WaveStats.notes`` counts
+as one-shot scenes of that capacity; the drain scatters the logits and
+classes back to the caller's rows. Each wave's ``WaveStats.notes`` counts
 ``stream_reused`` / ``stream_patched`` / ``stream_rebuilt`` frames, with
 the mean ``stream_overlap`` and the summed ``stream_plan_ms``.
 
@@ -53,7 +54,11 @@ replay. A new signature (every scene of a wave over a pinned tile budget
 at the same level, or plans a tripped circuit breaker rerouted) captures
 a new graph; a wave whose plans disagree among themselves raises, as in
 the JAX package, and never runs eagerly instead. On the CPU the same
-forward runs eagerly.
+forward runs eagerly. Each row's class is the argmax of its logits, taken
+in the same graph (eagerly with the eager forward), narrowed to the smallest
+integer dtype that holds ``n_classes`` (``uint8`` for up to 256 classes):
+the drain reads back the logits and a byte a row of classes, and the host
+computes none.
 
 Circuit breakers and measured dispatch, as in the JAX package: the
 context registry's ``BreakerBoard`` is fed by contained wave failures
@@ -67,7 +72,7 @@ gap re-profiles it (``engine.autotune.reprofile``).
 Stage split, as in the JAX package: **plan** builds the host plan
 (``PlanCache.get_or_build(device=False)``) on planner threads; **dispatch**
 fetches each plan's memoized upload and enqueues the forward without a
-host sync; **drain** reads the wave's logits back. ``sync=False``
+host sync; **drain** reads the wave's logits and classes back. ``sync=False``
 pipelines them. Short waves are padded with the first scene's plan and
 zero features; padding slots are dropped.
 
@@ -78,8 +83,9 @@ scheduler's (``serving.scheduler``): in ``serve.dispatch``,
 ``scene.replay`` (the graph's replay; on the CPU, or a new bucket, the
 forward itself); in ``serve.drain``, ``scene.wait`` (the host waits on an
 event recorded after the replay's output was copied), ``scene.readback``
-(the logits' copy to the host alone) and ``scene.finish`` (reshape,
-scatter, argmax, breakers). The drain counts its ``readback_bytes``. On
+(the logits' and the classes' copies to the host) and ``scene.finish``
+(reshape, scatter, breakers). The drain counts its ``readback_bytes`` and,
+in ``notes["pred_device_rows"]``, the rows the device classified. On
 the card, CUDA events around the replay give ``event_ms["forward"]``, and
 events captured in the bucket's graph at ``apply_unet``'s level
 boundaries give ``event_ms["rows"]`` (the wave's tables moved to each
@@ -197,6 +203,15 @@ class StreamHandle:
         return self.state.stats()
 
 
+def class_dtype(n_classes: int) -> torch.dtype:
+    """The smallest integer dtype that holds every class index below
+    ``n_classes``: the dtype a wave's classes travel to the host in."""
+    for dtype in (torch.uint8, torch.int16, torch.int32):
+        if n_classes - 1 <= torch.iinfo(dtype).max:
+            return dtype
+    return torch.int64
+
+
 class SceneEngine(ServingBase):
     """Host-side batched scene driver (fixed shapes, plan-cached).
 
@@ -245,6 +260,7 @@ class SceneEngine(ServingBase):
         self.cfg, self.model, self.batch, self.spec = cfg, model, batch, spec
         self.ctx, self.family, self.layout = ctx, family, layout
         self.backend, self.use_kernel = backend, use_kernel
+        self._class_dtype = class_dtype(cfg.n_classes)
         self.cache = ctx.plan_cache
         self._topology = ctx.topology_key()
         #: the context registry's circuit breakers: contained dispatch and
@@ -505,7 +521,8 @@ class SceneEngine(ServingBase):
 
     @torch.inference_mode()
     def _dispatch_stage(self, reqs: list[SceneRequest], payloads, stats):
-        """The wave's device work, enqueued -> its logits on the device."""
+        """The wave's device work, enqueued -> its logits and classes on
+        the device."""
         with stats.span("scene.upload"):
             # the plan stage built (and counted) these host plans; adopt
             # fetches the memoized upload without rebuilding or counting.
@@ -523,14 +540,13 @@ class SceneEngine(ServingBase):
             if self.layout is None:
                 feats, cap = self._upload_feats(reqs, payloads, stats)
         if self.layout is None:
-            logits = self.run_wave(feats, plans, cap,
-                                   rids=[r.rid for r in reqs],
-                                   notes=stats.notes, stats=stats)
-        else:
-            with stats.span("scene.replay"):
-                logits = self._sharded_wave(reqs, plans, stats)
-                stats.pending["done"] = timing_event(self.device)
-        return logits
+            return self.run_wave(feats, plans, cap,
+                                 rids=[r.rid for r in reqs],
+                                 notes=stats.notes, stats=stats)
+        with stats.span("scene.replay"):
+            out = self._classify(self._sharded_wave(reqs, plans, stats))
+            stats.pending["done"] = timing_event(self.device)
+        return out
 
     def _upload_feats(self, reqs, payloads, stats) -> tuple:
         """A batched or bucketed wave's features on the device, and its
@@ -567,6 +583,11 @@ class SceneEngine(ServingBase):
             registry=self.ctx.registry, use_kernel=self.use_kernel,
             device=self.device, ctx=self.ctx, mark=mark)
 
+    def _classify(self, logits: torch.Tensor) -> tuple:
+        """``(logits, classes)``: each row's argmax (the first of tied
+        maxima, as numpy's), in the engine's narrow class dtype."""
+        return logits, logits.argmax(-1).to(self._class_dtype)
+
     def _sharded_wave(self, reqs, plans, stats) -> torch.Tensor:
         """A sharded wave: each scene's sharded forward, eagerly, after
         checking that its plan has the pinned layout's one signature ->
@@ -594,8 +615,9 @@ class SceneEngine(ServingBase):
     @torch.inference_mode()
     def run_wave(self, feats: list, plans: list, capacity: int, *,
                  rids=None, notes: dict | None = None,
-                 stats=None) -> torch.Tensor:
-        """Logits ``(batch * capacity, n_classes)`` of one wave: up to
+                 stats=None) -> tuple:
+        """Logits ``(batch * capacity, n_classes)`` and classes
+        ``(batch * capacity,)`` (``_classify``) of one wave: up to
         ``batch`` scenes' features (on the device) and uploaded plans, all
         of bucket ``capacity`` and of one plan signature; a short wave is
         padded with the first scene's plan and zero features. On the CPU
@@ -649,36 +671,40 @@ class SceneEngine(ServingBase):
         return key, bucket
 
     def _replay(self, key, bucket: dict, *, notes: dict | None = None,
-                stats=None) -> torch.Tensor:
-        """The forward of a staged wave (``_stage``): eagerly on the CPU,
-        else the replay of ``key``'s graph, captured first if new. With
-        ``stats``, the replay's timing events go to ``stats.pending``."""
+                stats=None) -> tuple:
+        """The forward and classes (``_classify``) of a staged wave
+        (``_stage``): eagerly on the CPU, else the replay of ``key``'s
+        graph, captured first if new. With ``stats``, the replay's timing
+        events go to ``stats.pending``."""
         notes = {} if notes is None else notes
         notes["graph_launches"] = {}
+
+        def forward(mark=None) -> tuple:
+            return self._classify(
+                self._apply(bucket["feats"], bucket["plan"], mark))
+
         if self.graphs is None:
-            return self._apply(bucket["feats"], bucket["plan"])
+            return forward()
         if key not in self.graphs:
-            self._apply(bucket["feats"], bucket["plan"])  # warm-up
+            forward()  # warm-up
             marks = []
 
             def mark(name: str) -> None:
                 marks.append((name, timing_event(self.device, external=True)))
 
-            self.graphs.capture(
-                key, lambda: self._apply(bucket["feats"], bucket["plan"],
-                                         mark))
+            self.graphs.capture(key, lambda: forward(mark))
             bucket["marks"] = marks
         start = timing_event(self.device)
-        logits = self.graphs.replay(key)
+        out = self.graphs.replay(key)
         end = timing_event(self.device)
         notes["graph_launches"] = dict(self.graphs.launches(key))
-        # a copy: the next wave's replay overwrites the graph's output
-        logits = logits.clone()
+        # copies: the next wave's replay overwrites the graph's outputs
+        out = tuple(t.clone() for t in out)
         if stats is not None:
             stats.pending.update(start=start, end=end, marks=bucket["marks"],
                                  replays=self.graphs.replays,
                                  done=timing_event(self.device))
-        return logits
+        return out
 
     def _read_events(self, stats) -> None:
         """The wave's device ms from its events (``event_ms``), once the
@@ -698,45 +724,51 @@ class SceneEngine(ServingBase):
                                    + prev.elapsed_time(ev))
             prev = ev
 
-    def _drain(self, reqs: list[SceneRequest], logits, stats) -> None:
-        """The scheduler's drain: wait for the wave, copy its logits to the
-        host, finish its requests (``_drain_stage``)."""
+    def _drain(self, reqs: list[SceneRequest], out, stats) -> None:
+        """The scheduler's drain: wait for the wave, copy its logits and
+        then its classes (the device's argmax, ``_classify``) to the host,
+        finish its requests (``_drain_stage``)."""
         with stats.span("scene.wait"):
             done = stats.pending.get("done")
             if done is not None:
                 done.synchronize()
             self._read_events(stats)
         with stats.span("scene.readback"):
-            logits = logits.cpu().numpy()
-            stats.readback_bytes += logits.nbytes
+            logits, pred = (t.cpu().numpy() for t in out)
+            stats.readback_bytes += logits.nbytes + pred.nbytes
+        stats.notes["pred_device_rows"] = pred.size
         with stats.span("scene.finish"):
-            self._drain_stage(reqs, logits)
+            self._drain_stage(reqs, (logits, pred))
 
-    def _drain_stage(self, reqs: list[SceneRequest], logits) -> None:
-        """Each request's logits and classes from the wave's, on the
-        host."""
-        logits = logits.reshape(self.batch, -1, logits.shape[-1])
+    def _drain_stage(self, reqs: list[SceneRequest], out) -> None:
+        """Each request's logits and classes (``int64``) from the wave's
+        ``out = (logits, classes)`` on the host."""
+        logits, pred = out
+        n_classes = logits.shape[-1]
+        logits = logits.reshape(self.batch, -1, n_classes)
+        # widened into one array for the wave: numpy asks the kernel for
+        # huge pages for a large array, so this faults in far fewer pages
+        # than an array a request would
+        pred = pred.astype(np.int64).reshape(self.batch, -1)
         for i, r in enumerate(reqs):
             if isinstance(r, StreamFrameRequest):
-                # scatter the stream's canonical rows back to the caller's
-                # row positions (inactive rows stay zero-logit)
-                fr = r._frame_rows
-                out = np.zeros((r.scene.capacity, logits.shape[-1]),
-                               logits.dtype)
-                act = fr >= 0
-                out[act] = logits[i][fr[act]]
-                r.logits = out
+                # the stream's canonical rows back to the caller's rows
+                dst = r._frame_rows >= 0
+                src = r._frame_rows[dst]
             elif self.family is not None:
-                # scatter the bucket's rows back to the request's rows
-                # (padding rows stay zero-logit)
-                idx = r._active_idx
-                out = np.zeros((r.scene.capacity, logits.shape[-1]),
-                               logits.dtype)
-                out[idx] = logits[i][: len(idx)]
-                r.logits = out
+                # the bucket's rows back to the request's rows
+                dst = r._active_idx
+                src = slice(len(dst))
             else:
-                r.logits = logits[i]
-            r.pred = r.logits.argmax(-1)
+                r.logits, r.pred = logits[i], pred[i]
+                r.done = True
+                continue
+            # the other rows stay zero-logit, of class 0 (numpy's argmax of
+            # a zero row)
+            r.logits = np.zeros((r.scene.capacity, n_classes), logits.dtype)
+            r.logits[dst] = logits[i][src]
+            r.pred = np.zeros(r.scene.capacity, np.int64)
+            r.pred[dst] = pred[i][src]
             r.done = True
         # a drained wave is a success for every backend it exercised: closes
         # HALF_OPEN probes and resets consecutive-failure counts

@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import engine
 from repro_torch.configs import get_config
@@ -904,6 +905,64 @@ def test_scene_engine_graph_replay_matches_eager_wave(cuda_device):
     assert eng.graphs.replays == 2 and len(eng.graphs) == 1
 
 
+class _AtenOps(TorchDispatchMode):
+    """The names of the ATen ops dispatched while it is entered (a graph's
+    replay dispatches none of the ops it holds)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+def test_scene_classes_come_from_the_bucket_graph(cuda_device):
+    """A graph-replayed wave's classes are the argmax the bucket's graph
+    takes: the graph returns the logits and their uint8 argmax, a wave run
+    on it calls no argmax outside the graph (the ATen ops dispatched),
+    each served scene's classes equal numpy's argmax of its read-back
+    logits, and the wave reads back the logits' bytes and a byte a row."""
+    from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+
+    cfg = SCN_SERVE_CFG
+    scenes = [_serve_scene(s, n) for s, n in ((320, None), (321, 800))]
+    spec = engine.build_plan_spec(scenes, cfg)
+    ctx = engine.ExecutionContext(device=cuda_device)
+    eng = SceneEngine(cfg, SCNUNet(cfg, device=cuda_device), 2, spec=spec,
+                      ctx=ctx)
+    handles = eng.submit([SceneRequest(i, t) for i, t in enumerate(scenes)])
+    eng.serve()
+    rows = 2 * cfg.capacity
+    for h in handles:
+        r = h.result()
+        assert r.pred.dtype == np.int64 and r.pred.shape == (cfg.capacity,)
+        np.testing.assert_array_equal(r.pred, r.logits.argmax(-1))
+    (st,) = eng.wave_stats
+    assert st.notes["pred_device_rows"] == rows
+    assert st.readback_bytes == rows * cfg.n_classes * 4 + rows
+    (key,) = eng.graphs.keys()
+    assert eng.graphs.launches(key)["sspnna_fused"] > 0
+    plans = [ctx.plan_cache.get_or_build(t, cfg, device=cuda_device,
+                                         spec=spec, plan_tiles=True)
+             for t in scenes]
+    feats = [torch.from_numpy(t.feats).to(cuda_device) for t in scenes]
+    with torch.inference_mode():
+        with _AtenOps() as replayed:
+            logits, pred = eng.run_wave(feats, plans, cfg.capacity)
+        with _AtenOps() as eager:
+            eng._classify(logits)
+    assert eng.graphs.replays == 2 and eng.graphs.keys() == [key]
+    assert "argmax" in eager.names and "clone" in replayed.names
+    assert "argmax" not in replayed.names, sorted(replayed.names)
+    assert pred.dtype == torch.uint8 and pred.shape == (rows,)
+    np.testing.assert_array_equal(pred.cpu().numpy(),
+                                  logits.cpu().numpy().argmax(-1))
+    eng.close()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
 def test_serving_waves_time_their_device_work(cuda_device, sync):
@@ -929,7 +988,8 @@ def test_serving_waves_time_their_device_work(cuda_device, sync):
     assert eng.graphs.replays == len(eng.wave_stats) == 3
     for st in eng.wave_stats:
         assert st.pending == {}
-        assert st.readback_bytes == 2 * cfg.capacity * cfg.n_classes * 4
+        # the logits in f32 and a byte a row of classes
+        assert st.readback_bytes == 2 * cfg.capacity * (cfg.n_classes * 4 + 1)
         forward = st.event_ms["forward"]
         assert forward > 0
         if len(st.event_ms) > 1:

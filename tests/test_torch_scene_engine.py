@@ -27,13 +27,17 @@ from repro.serving.scheduler import AdmissionPolicy as JAdmissionPolicy
 from repro.sparse.tensor import SparseVoxelTensor as JSparseVoxelTensor
 from repro_torch import engine
 from repro_torch.configs import get_config
-from repro_torch.data.scenes import N_CLASSES, make_scene
+from repro_torch.data.scenes import N_CLASSES, make_lidar_sweep, make_scene
 from repro_torch.kernels.sspnna.sspnna import sspnna_fused
 from repro_torch.models import transformer
 from repro_torch.models.scn import UNetConfig, params_from_jax
 from repro_torch.serving.api import SHED, AdmissionPolicy, RequestShedError
 from repro_torch.serving.engine import Engine, Request
-from repro_torch.serving.scene_engine import SceneEngine, SceneRequest
+from repro_torch.serving.scene_engine import (
+    SceneEngine,
+    SceneRequest,
+    class_dtype,
+)
 from repro_torch.sparse.tensor import SparseVoxelTensor
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -182,6 +186,76 @@ def test_async_survives_plan_cache_eviction(unet, specs):
     assert eng.cache.misses == len(scenes) and eng.cache.hits == 0
 
 
+@pytest.mark.parametrize("mode", ["batched", "bucketed", "stream"])
+def test_classes_come_from_the_wave_forward(unet, specs, mode):
+    """Every served request's classes are the argmax taken beside the wave's
+    forward, not on the host: int64 of shape (capacity,), equal bit for bit
+    to numpy's argmax of the served logits, class 0 on the padding and
+    inactive rows the drain zero-fills, and each wave notes its batch x
+    capacity rows classified on the device."""
+    _, model = unet
+    spec, _ = specs
+    cfg = UNetConfig(**CFG)
+    if mode == "stream":
+        eng = SceneEngine(cfg, model, 2, ctx=_ctx())
+        frames, shifts = make_lidar_sweep(3, 3, resolution=RES, capacity=CAP,
+                                          step=4)
+        reqs = eng.serve_stream(
+            [SparseVoxelTensor(c, f, m) for c, f, _, m in frames], shifts)
+        eng.close()
+        held = [r._frame_rows >= 0 for r in reqs]
+    else:
+        kw = (dict(spec=spec) if mode == "batched" else
+              dict(family=engine.SignatureFamily((1024, CAP)),
+                   policy=AdmissionPolicy()))
+        eng = SceneEngine(cfg, model, 2, ctx=_ctx(), **kw)
+        reqs = list(_serve(eng, [_scene(*w) for w in WAVE],
+                           SceneRequest).values())
+        held = [np.ones(CAP, bool) for _ in reqs]
+        if mode == "bucketed":
+            for r, h in zip(reqs, held):
+                h[:] = False
+                h[r._active_idx] = True
+    assert len(reqs) == 3 and all(r.done for r in reqs)
+    for r, h in zip(reqs, held):
+        assert r.pred.dtype == np.int64 and r.pred.shape == (CAP,)
+        np.testing.assert_array_equal(r.pred, r.logits.argmax(-1))
+        assert not r.logits[~h].any() and not r.pred[~h].any()
+    assert mode == "batched" or not all(h.all() for h in held)
+    assert len(eng.wave_stats) == 2
+    for st in eng.wave_stats:
+        assert st.notes["pred_device_rows"] == 2 * (st.bucket or CAP)
+
+
+def test_drained_classes_take_the_first_of_tied_maxima(unet):
+    """Hand-made logits with tied rows, classified as the wave's forward
+    classifies them and drained: each row's class is the first of its
+    maxima, as numpy's argmax gives, in the narrowest dtype that holds the
+    classes on the way."""
+    _, model = unet
+    eng = SceneEngine(UNetConfig(**CFG), model, 2, ctx=_ctx())
+    rng = np.random.default_rng(0)
+    # five levels over the classes: many rows tie at their maximum
+    logits = rng.integers(-2, 3, (2 * CAP, N_CLASSES)).astype(np.float32)
+    logits[0] = 0.0
+    logits[1, [1, 3]] = 5.0
+    out = eng._classify(torch.from_numpy(logits))
+    assert out[1].dtype == torch.uint8
+    reqs = [SceneRequest(i, _scene(40 + i)) for i in range(2)]
+    for r in reqs:
+        r._backends = ()
+    eng._drain_stage(reqs, tuple(t.numpy() for t in out))
+    pred = np.concatenate([r.pred for r in reqs])
+    assert pred.dtype == np.int64
+    np.testing.assert_array_equal(pred, logits.argmax(-1))
+    assert pred[0] == 0 and pred[1] == 1
+    tied = (logits == logits.max(-1, keepdims=True)).sum(-1) > 1
+    assert tied.mean() > 0.1
+    eng.close()
+    assert [class_dtype(n) for n in (2, 256, 257, 2**15 + 1, 2**31 + 1)] == [
+        torch.uint8, torch.uint8, torch.int16, torch.int32, torch.int64]
+
+
 def test_wave_forward_matches_each_scenes_forward(unet, specs):
     """Three scenes of different sizes in one pass equal each scene's own
     ``apply_unet`` on the same pinned plans."""
@@ -213,7 +287,8 @@ def test_wave_forward_matches_each_scenes_forward(unet, specs):
     feats = [torch.from_numpy(np.asarray(t.feats)) for t in scenes]
     with torch.no_grad():
         np.testing.assert_array_equal(
-            eng.run_wave(feats, plans, CAP).numpy(), got.reshape(-1, N_CLASSES)
+            eng.run_wave(feats, plans, CAP)[0].numpy(),
+            got.reshape(-1, N_CLASSES)
             .numpy())
     with pytest.raises(ValueError, match="features"):
         eng.run_wave([f[:, :2] for f in feats], plans, CAP)

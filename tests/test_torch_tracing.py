@@ -210,9 +210,11 @@ def test_scene_wave_counters(unet, scenes):
     eng.close()
     first, short, again = eng.wave_stats
     assert [len(st.rids) for st in eng.wave_stats] == [2, 1, 2]
-    # a short wave is padded to the batch, and the drain copies all of it
+    # a short wave is padded to the batch, and the drain copies all of it:
+    # the logits in f32 and a byte a row of classes
     for st in eng.wave_stats:
-        assert st.readback_bytes == BATCH * CAP * N_CLASSES * 4
+        assert st.readback_bytes == BATCH * CAP * (N_CLASSES * 4 + 1)
+        assert st.notes["pred_device_rows"] == BATCH * CAP
         assert st.event_ms == {} and st.pending == {}
 
 
